@@ -1,0 +1,63 @@
+"""Exact greedy NMS: the CUDA kernel ``csrc/nms.cu`` and its wrapper.
+
+The sort by score, the areas and the fixed-buffer scatter stay in PyTorch, as
+the JAX package keeps them outside its ``pallas_call``; the kernel takes the
+sorted rows and returns the keep mask, one block per image, one launch per call.
+A CPU tensor takes the plain :func:`ops.nms.greedy_keep`; a CUDA tensor launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ._build import CudaKernel
+from .nms import class_offset_boxes, greedy_keep, select
+
+KERNEL = CudaKernel(
+    "nms.cu", "pt_nms_keep",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_void_p],
+    extra_flags=("-fmad=false",),
+)
+
+
+def nms_keep(boxes_s: torch.Tensor, area_s: torch.Tensor, valid_s: torch.Tensor,
+             iou_thresh: float, max_keep: int) -> torch.Tensor:
+    """Sorted rows (N, K, 4), (N, K), (N, K) -> keep mask (N, K) bool."""
+    if boxes_s.device.type == "cpu":
+        return greedy_keep(boxes_s, area_s, valid_s, iou_thresh, max_keep)
+    if boxes_s.device.type != "cuda":
+        raise ValueError(f"nms_keep: unsupported device {boxes_s.device}")
+    n, k = valid_s.shape
+    if boxes_s.shape != (n, k, 4) or area_s.shape != (n, k):
+        raise ValueError(f"nms_keep: shapes {tuple(boxes_s.shape)}, {tuple(area_s.shape)}, "
+                         f"{tuple(valid_s.shape)} do not match")
+    for name, x, dt in (("boxes", boxes_s, torch.float32), ("area", area_s, torch.float32),
+                        ("valid", valid_s, torch.bool)):
+        if x.dtype != dt or not x.is_contiguous() or x.device != boxes_s.device:
+            raise ValueError(f"nms_keep: {name} must be a contiguous {dt} tensor on "
+                             f"{boxes_s.device}")
+    keep = torch.empty((n, k), dtype=torch.uint8, device=boxes_s.device)
+    if n == 0 or k == 0 or max_keep <= 0:
+        return keep.zero_().bool()
+    KERNEL.launch(boxes_s.data_ptr(), area_s.data_ptr(), valid_s.data_ptr(), keep.data_ptr(),
+                  n, k, float(iou_thresh), int(max_keep),
+                  torch.cuda.current_stream(boxes_s.device).cuda_stream)
+    return keep.bool()
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+        max_keep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over (K, 4) or (N, K, 4) boxes -> (indices, valid), (…, max_keep)."""
+    return select(nms_keep, boxes, scores, valid, iou_thresh, max_keep)
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor,
+                valid: torch.Tensor, iou_thresh: float,
+                max_keep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Category-aware NMS via the coordinate-offset trick."""
+    return nms(class_offset_boxes(boxes, idxs, valid), scores, valid, iou_thresh, max_keep)
