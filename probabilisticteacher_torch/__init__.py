@@ -9,7 +9,7 @@ kernel's plain PyTorch version runs instead.
 """
 
 from .config import Arch, CfgNode, get_cfg
-from .structures import Detections, ImageBatch, Proposals, PseudoLabels
+from .structures import Detections, GroundTruth, ImageBatch, Proposals, PseudoLabels
 
-__all__ = ["Arch", "CfgNode", "get_cfg", "Detections", "ImageBatch", "Proposals",
-           "PseudoLabels"]
+__all__ = ["Arch", "CfgNode", "get_cfg", "Detections", "GroundTruth", "ImageBatch",
+           "Proposals", "PseudoLabels"]

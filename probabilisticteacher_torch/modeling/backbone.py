@@ -1,4 +1,4 @@
-"""VGG backbone, forward only (counterpart of the JAX ``modeling/backbone.py``).
+"""VGG backbone (counterpart of the JAX ``modeling/backbone.py``).
 
 Five stages ("vgg_block1".."vgg_block5") of 3x3 convolutions with bias and ReLU;
 a 2x2/2 max pool after blocks 1-4 only, so block5 keeps stride 16. Odd trailing
@@ -10,7 +10,14 @@ tensor already is a channels-last NCHW view, and the output's
 ``permute(0, 2, 3, 1)`` is a contiguous NHWC tensor again, ready for the
 ROIAlign kernel, with no copy either way.
 
-The training slice adds the tie-splitting max-pool backward of the JAX package.
+Training follows the JAX package in two places:
+
+- the 2x2 max pool's backward splits a window's cotangent evenly among its tied
+  maxima (:class:`MaxPool2x2`), where PyTorch's own sends it all to one element;
+  under bf16, flat activation regions tie;
+- blocks 1..``freeze_at`` pass no gradient back: they run under ``no_grad``,
+  which is the JAX package's ``stop_gradient`` after block ``freeze_at`` without
+  keeping the frozen stem's activations for a backward that never comes.
 """
 
 from __future__ import annotations
@@ -30,6 +37,34 @@ VGG_STAGES: Dict[int, Sequence[Sequence[int]]] = {
 }
 
 
+class MaxPool2x2(torch.autograd.Function):
+    """Non-overlapping 2x2/2 max pool on NCHW (odd trailing rows and columns are
+    dropped). Backward: the cotangent goes to every element equal to its window's
+    maximum, divided by the tie count, so each window routes exactly its cotangent."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = F.max_pool2d(x, 2, 2)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        h, w = x.shape[2], x.shape[3]
+        he, we = h - h % 2, w - w % 2
+
+        def up(t):
+            return t.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+        mask = (x[:, :, :he, :we] == up(out)).to(g.dtype)
+        cnt = F.avg_pool2d(mask, 2, 2) * 4        # tie count per window, exact
+        gx = up(g / cnt) * mask
+        if he != h or we != w:
+            gx = F.pad(gx, (0, w - we, 0, h - he))
+        return gx
+
+
 class VGG(nn.Module):
     """(N, H, W, 3) -> {feature: (N, H/stride, W/stride, C)} for the requested stage.
 
@@ -38,9 +73,10 @@ class VGG(nn.Module):
     """
 
     def __init__(self, depth: int = 16, out_feature: str = "vgg_block5",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, freeze_at: int = 0):
         super().__init__()
         self.depth = depth
+        self.freeze_at = freeze_at
         self.out_feature = out_feature
         self.last_block = int(out_feature.replace("vgg_block", ""))
         self.dtype = dtype
@@ -52,16 +88,23 @@ class VGG(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        for bi, channels in enumerate(VGG_STAGES[self.depth], start=1):
-            for ci in range(1, len(channels) + 1):
-                conv = getattr(self, f"block{bi}_conv{ci}")
-                x = F.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
-                                    padding=1))
-            if bi == self.last_block:
-                break
-            if bi < 5:  # no pool in block5 -> stride stays 16
-                x = F.max_pool2d(x, 2, 2)
+        frozen = min(self.freeze_at, self.last_block)
+        with torch.no_grad():
+            for bi in range(1, frozen + 1):
+                x = self._block(x, bi)
+        for bi in range(frozen + 1, self.last_block + 1):
+            x = self._block(x, bi)
         return x.permute(0, 2, 3, 1)
+
+    def _block(self, x: torch.Tensor, bi: int) -> torch.Tensor:
+        """Block ``bi``'s convolutions, then its pool unless it is the last or block5."""
+        for ci in range(1, len(VGG_STAGES[self.depth][bi - 1]) + 1):
+            conv = getattr(self, f"block{bi}_conv{ci}")
+            x = F.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                                padding=1))
+        if bi != self.last_block and bi < 5:  # no pool in block5 -> stride stays 16
+            x = MaxPool2x2.apply(x)
+        return x
 
     @staticmethod
     def out_channels(depth: int, feature: str) -> int:

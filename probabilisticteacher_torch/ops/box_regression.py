@@ -1,7 +1,9 @@
-"""Box delta transform (counterpart of the JAX ``ops/box_regression.py``).
+"""Box delta transform and probabilistic box densities (counterpart of the JAX
+``ops/box_regression.py``).
 
 xywh parameterization with per-coordinate weights, dw/dh clamped at
-``log(1000/16)`` on decode, ``+1e-9`` inside the log ratio on encode.
+``log(1000/16)`` on decode, ``+1e-9`` inside the log ratio on encode; Gaussian and
+Laplace densities with the sigma constant 0.3 in their normalizers.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import math
 import torch
 
 SCALE_CLAMP = math.log(1000.0 / 16)
+SIGMA_CONSTANT = 0.3
 
 
 def get_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,
@@ -66,3 +69,22 @@ def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
     out = torch.stack(
         [pcx - 0.5 * pw, pcy - 0.5 * ph, pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1)
     return out.reshape(shape)
+
+
+def gaussian_dist_pdf(val: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                      eps: float = 1e-9) -> torch.Tensor:
+    """Gaussian density with the sigma-constant-0.3 normalizer."""
+    return torch.exp(-((val - mean) ** 2) / (var + eps) / 2.0) / torch.sqrt(
+        2.0 * math.pi * (var + SIGMA_CONSTANT))
+
+
+def laplace_dist_pdf(val: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                     eps: float = 1e-9) -> torch.Tensor:
+    """Laplace density with the sigma-constant-0.3 normalizer."""
+    return torch.exp(-torch.abs(val - mean) / torch.sqrt(var + eps)) / torch.sqrt(
+        4.0 * (var + SIGMA_CONSTANT))
+
+
+def nll(pdf_vals: torch.Tensor) -> torch.Tensor:
+    """-log(pdf + 1e-9), elementwise."""
+    return -torch.log(pdf_vals + 1e-9)

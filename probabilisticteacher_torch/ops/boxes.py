@@ -51,3 +51,13 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     w = boxes[..., 2] - boxes[..., 0]
     h = boxes[..., 3] - boxes[..., 1]
     return (w > threshold) & (h > threshold)
+
+
+def inside_box(boxes: torch.Tensor, image_hw: torch.Tensor,
+               boundary_thresh: float = 0.0) -> torch.Tensor:
+    """Mask of boxes fully inside the image plus a margin (the legacy RPN boundary
+    filter). ``image_hw`` (..., 2) as (h, w), broadcastable against ``boxes[..., 0]``."""
+    h = image_hw[..., 0]
+    w = image_hw[..., 1]
+    return ((boxes[..., 0] >= -boundary_thresh) & (boxes[..., 1] >= -boundary_thresh)
+            & (boxes[..., 2] < w + boundary_thresh) & (boxes[..., 3] < h + boundary_thresh))

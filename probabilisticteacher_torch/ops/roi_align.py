@@ -1,15 +1,16 @@
 """ROIAlign, plain PyTorch (aligned=True, fixed s x s sampling).
 
 Counterpart of the JAX ``ops/roi_align.py::roi_align_mxu`` and
-``roi_align_batched``, and the plain version of the CUDA kernel in
-``ops/roi_align_cuda.py``: the CPU runs it, and the card runs it only to check
-the kernel.
+``roi_align_batched``, and of the einsum VJP ``roi_align_pallas.py::_bwd_einsum``:
+the plain versions of the CUDA kernels in ``ops/roi_align_cuda.py``. The CPU runs
+them, and the card runs them only to check the kernels.
 
 Bilinear sampling is a 2-tap linear map per axis and the s x s sample average is
 linear too, so sampling and pooling fold into per-ROI matrices Wy (R, p, H) and
 Wx (R, p, W):  ``out[r, y, x, c] = sum_h sum_w Wy[r, y, h] F[h, w, c] Wx[r, x, w]``.
 The contraction runs in the feature dtype (bf16 under AMP) with the weights
-rounded to it, as in the JAX package. Layout: features NHWC, boxes XYXY in image
+rounded to it, as in the JAX package. The backward is the transposed pair,
+``dF[n] = sum_r Wy[n, r]^T dOut[n, r] Wx[n, r]``. Layout: features NHWC, boxes XYXY in image
 coordinates, ``spatial_scale`` = 1/stride.
 """
 
@@ -101,3 +102,40 @@ def roi_align_batched(features: torch.Tensor, boxes: torch.Tensor, spatial_scale
             out[i, lo:hi] = roi_align_mxu(features[i], boxes[i, lo:hi], spatial_scale,
                                           output_size, sampling_ratio)
     return out
+
+
+def batched_pool_matrices(boxes: torch.Tensor, h: int, w: int, spatial_scale: float, p: int,
+                          s: int, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """boxes (N, R, 4) -> Wy (N, R, p, H), Wx (N, R, p, W) in ``dtype``."""
+    n, r = boxes.shape[:2]
+    wy, wx = pool_matrices(boxes.reshape(n * r, 4), h, w, spatial_scale, p, s, dtype)
+    return wy.reshape(n, r, p, h), wx.reshape(n, r, p, w)
+
+
+def roi_align_bwd_plain(wy: torch.Tensor, wx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d features of ROIAlign: wy (N, R, p, H), wx (N, R, p, W), g (N, R, p, p, C) ->
+    dF (N, H, W, C) in the dtype of ``wy`` (the feature dtype).
+
+    Mirrors ``_bwd_einsum``: ``g`` is cast to the feature dtype; the first
+    contraction (over the axis whose map side is shorter) rounds its intermediate
+    to the feature dtype; the second accumulates in f32 and is cast back once. The
+    ROIs go in chunks of ROI_CHUNK per image, so the intermediate stays bounded;
+    the chunks' partial sums add up in f32.
+    """
+    n, r, p, h = wy.shape
+    w = wx.shape[-1]
+    c = g.shape[-1]
+    dt = wy.dtype
+    g = g.to(dt)
+    out = torch.zeros((n, h, w, c), dtype=torch.float32, device=g.device)
+    for i in range(n):
+        for lo in range(0, r, ROI_CHUNK):
+            hi = min(lo + ROI_CHUNK, r)
+            wy_i, wx_i, g_i = wy[i, lo:hi], wx[i, lo:hi], g[i, lo:hi]
+            if h <= w:   # wide map: contract the rows first
+                u = torch.einsum("rqh,rqxc->rxhc", wy_i, g_i)            # in dt
+                out[i] += torch.einsum("rxhc,rxw->hwc", u.float(), wx_i.float())
+            else:        # tall map: contract the columns first
+                t = torch.einsum("rqxc,rxw->rqwc", g_i, wx_i)            # in dt
+                out[i] += torch.einsum("rqh,rqwc->hwc", wy_i.float(), t.float())
+    return out.to(dt)

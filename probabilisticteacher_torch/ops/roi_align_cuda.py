@@ -1,9 +1,11 @@
-"""ROIAlign forward: the CUDA kernel ``csrc/roi_align_fwd.cu`` and its wrapper.
+"""ROIAlign on the card: the CUDA kernels ``csrc/roi_align_fwd.cu`` (forward) and
+``csrc/roi_align_bwd.cu`` (d features), their wrappers, and the
+``torch.autograd.Function`` that joins them.
 
-A CPU tensor takes the plain :func:`ops.roi_align.roi_align_batched`; a CUDA
-tensor launches the kernel or raises. The kernel has no backward yet (the
-training slice adds it), so a call that would need a gradient on the card raises
-rather than return a tensor cut off from autograd.
+A CPU tensor takes the plain versions of ``ops/roi_align.py``
+(:func:`roi_align_batched` forward, :func:`roi_align_bwd_plain` backward); a CUDA
+tensor launches the kernel or raises. Boxes get no gradient: the JAX package stops
+it everywhere, and every caller passes boxes that are already detached.
 """
 
 from __future__ import annotations
@@ -13,45 +15,57 @@ import ctypes
 import torch
 
 from ._build import CudaKernel
-from .roi_align import roi_align_batched
+from .roi_align import batched_pool_matrices, roi_align_batched, roi_align_bwd_plain
 
 KERNEL = CudaKernel(
     "roi_align_fwd.cu", "pt_roi_align_fwd",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                   ctypes.c_void_p],
 )
+BWD_KERNEL = CudaKernel(
+    "roi_align_bwd.cu", "pt_roi_align_bwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                                  ctypes.c_void_p],
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def roi_align(features: torch.Tensor, boxes: torch.Tensor, spatial_scale: float,
-              output_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+def _check(shape, dtype: torch.dtype, device: torch.device, boxes: torch.Tensor, p: int,
+           s: int, name: str) -> None:
+    """Raise on what the kernels do not take: a map ``shape`` (N, H, W, C) of ``dtype``
+    on ``device`` and boxes (N, R, 4) beside it."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if len(shape) != 4 or boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.shape[0] != shape[0]:
+        raise ValueError(f"{name}: features {tuple(shape)} and boxes {tuple(boxes.shape)} are "
+                         "not (N, H, W, C) and (N, R, 4)")
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: features dtype {dtype} is not f32 or bf16")
+    if boxes.device != device:
+        raise ValueError(f"{name}: features and boxes are on different devices")
+    if p * s > 64 or s > 4:
+        raise ValueError(f"{name}: output_size {p} x sampling_ratio {s} is beyond the "
+                         "kernels' limits (p * s <= 64, s <= 4)")
+
+
+def _check_aligned(x: torch.Tensor, name: str, what: str) -> None:
+    vec = 16 // x.element_size()
+    if not x.is_contiguous() or x.shape[-1] % vec or x.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must be contiguous, 16-byte aligned, with its last "
+                         f"dim a multiple of {vec}")
+
+
+def roi_align_forward(features: torch.Tensor, boxes: torch.Tensor, spatial_scale: float,
+                      output_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
     """features (N, H, W, C), boxes (N, R, 4) XYXY -> (N, R, p, p, C) in the feature dtype."""
     if features.device.type == "cpu":
         return roi_align_batched(features, boxes, spatial_scale, output_size, sampling_ratio)
-    if features.device.type != "cuda":
-        raise ValueError(f"roi_align: unsupported device {features.device}")
-    if torch.is_grad_enabled() and features.requires_grad:
-        raise NotImplementedError(
-            "roi_align: the ROIAlign backward kernel is not ported yet; call under "
-            "torch.no_grad() on the card")
-    if features.dim() != 4 or boxes.dim() != 3 or boxes.shape[-1] != 4 \
-            or boxes.shape[0] != features.shape[0]:
-        raise ValueError(f"roi_align: features {tuple(features.shape)} and boxes "
-                         f"{tuple(boxes.shape)} are not (N, H, W, C) and (N, R, 4)")
-    if features.dtype not in _DTYPES:
-        raise ValueError(f"roi_align: features dtype {features.dtype} is not f32 or bf16")
-    if boxes.device != features.device:
-        raise ValueError("roi_align: features and boxes are on different devices")
+    p, s = output_size, max(sampling_ratio, 1)
+    _check(features.shape, features.dtype, features.device, boxes, p, s, "roi_align")
+    _check_aligned(features, "roi_align", "features (N, H, W, C)")
     n, h, w, c = features.shape
     r = boxes.shape[1]
-    p, s = output_size, max(sampling_ratio, 1)
-    vec = 16 // features.element_size()
-    if not features.is_contiguous() or c % vec or features.data_ptr() % 16:
-        raise ValueError(f"roi_align: features must be contiguous NHWC, 16-byte aligned, with "
-                         f"C a multiple of {vec}")
-    if p * s > 64:
-        raise ValueError(f"roi_align: output_size * sampling_ratio = {p * s} exceeds 64")
     boxes = boxes.to(torch.float32).contiguous()
     out = torch.empty((n, r, p, p, c), dtype=features.dtype, device=features.device)
     if n * r == 0:
@@ -60,3 +74,64 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, spatial_scale: float,
                   float(spatial_scale), _DTYPES[features.dtype],
                   torch.cuda.current_stream(features.device).cuda_stream)
     return out
+
+
+def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor, feat_shape, dtype: torch.dtype,
+                       spatial_scale: float, output_size: int = 7,
+                       sampling_ratio: int = 2) -> torch.Tensor:
+    """d features: grad (N, R, p, p, C), boxes (N, R, 4) -> (N, H, W, C) in ``dtype``.
+
+    ``grad`` is cast to the feature dtype first, as the JAX package does. On the
+    card dF comes from f32 atomics, so its last bits vary from run to run.
+    """
+    n, h, w, c = feat_shape
+    p, s = output_size, max(sampling_ratio, 1)
+    grad = grad.to(dtype)
+    if grad.device.type == "cpu":
+        wy, wx = batched_pool_matrices(boxes, h, w, spatial_scale, p, s, dtype)
+        return roi_align_bwd_plain(wy, wx, grad)
+    grad = grad.contiguous()
+    _check(feat_shape, dtype, grad.device, boxes, p, s, "roi_align_backward")
+    r = boxes.shape[1]
+    if grad.shape != (n, r, p, p, c) or c % 4:
+        raise ValueError(f"roi_align_backward: grad {tuple(grad.shape)} is not "
+                         f"{(n, r, p, p, c)} with C a multiple of 4")
+    _check_aligned(grad, "roi_align_backward", "grad (N, R, p, p, C)")
+    boxes = boxes.to(torch.float32).contiguous()
+    # sized from the real dtype: an f32 map accumulates in place
+    scratch = torch.empty((n, h, w, c), dtype=torch.float32, device=grad.device)
+    out = scratch if dtype == torch.float32 else torch.empty((n, h, w, c), dtype=dtype,
+                                                             device=grad.device)
+    BWD_KERNEL.launch(grad.data_ptr(), boxes.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                      n, h, w, c, r, p, s, float(spatial_scale), _DTYPES[dtype],
+                      torch.cuda.current_stream(grad.device).cuda_stream)
+    return out
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """ROIAlign with d features: forward K1 (or its plain version on the CPU),
+    backward K2 (or :func:`roi_align_bwd_plain`). The boxes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, spatial_scale, output_size, sampling_ratio):
+        ctx.save_for_backward(boxes)
+        ctx.meta = (tuple(features.shape), features.dtype, spatial_scale, output_size,
+                    sampling_ratio)
+        return roi_align_forward(features, boxes, spatial_scale, output_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (boxes,) = ctx.saved_tensors
+        shape, dtype, scale, p, s = ctx.meta
+        dfeat = None
+        if ctx.needs_input_grad[0]:
+            dfeat = roi_align_backward(grad, boxes, shape, dtype, scale, p, s)
+        return dfeat, None, None, None, None
+
+
+def roi_align(features: torch.Tensor, boxes: torch.Tensor, spatial_scale: float,
+              output_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+    """Differentiable ROIAlign: features (N, H, W, C), boxes (N, R, 4) XYXY ->
+    (N, R, p, p, C) in the feature dtype; the gradient reaches the features only."""
+    return RoIAlignFunction.apply(features, boxes.detach(), spatial_scale, output_size,
+                                  sampling_ratio)

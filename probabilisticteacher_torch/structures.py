@@ -3,8 +3,7 @@
 
 Every structure is a batch-level NamedTuple of fixed-size tensors plus a
 ``valid`` mask, with the same fields, shapes and dtypes as the JAX package, so
-the two packages' outputs compare field by field. ``GroundTruth`` arrives with
-the training slice.
+the two packages' outputs compare field by field.
 """
 
 from __future__ import annotations
@@ -12,6 +11,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+class GroundTruth(NamedTuple):
+    """Padded ground-truth annotations for a batch."""
+
+    boxes: torch.Tensor    # (N, G, 4) XYXY in canvas coordinates, f32
+    classes: torch.Tensor  # (N, G) int32 in [0, K)
+    valid: torch.Tensor    # (N, G) bool
 
 
 class PseudoLabels(NamedTuple):

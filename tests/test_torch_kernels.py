@@ -6,9 +6,11 @@ the H100 with ``python -m pytest -m gpu tests/test_torch_kernels.py``. Elsewhere
 the ``cuda`` fixture skips them; whether a card is present is decided inside the
 fixture, never at import, so every pytest worker collects the same tests.
 
-Tolerances: ROIAlign bf16 2e-2 * max|F| (the plain version rounds its
+Tolerances: ROIAlign forward bf16 2e-2 * max|F| (the plain version rounds its
 interpolation matrices and the y-interpolated intermediate to bf16, as the JAX
-package does), f32 1e-5 * max|F|; NMS keep sets exactly equal.
+package does), f32 1e-5 * max|F|; ROIAlign backward bf16 2e-2 * max|dF| and f32
+1e-5 * max|dF| (the kernel adds with f32 atomics in no fixed order); NMS keep sets
+exactly equal.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ import torch
 
 from probabilisticteacher_torch.ops import nms as tnms
 from probabilisticteacher_torch.ops import nms_cuda, roi_align_cuda
-from probabilisticteacher_torch.ops.roi_align import roi_align_batched
+from probabilisticteacher_torch.ops.roi_align import (batched_pool_matrices, roi_align_batched,
+                                                      roi_align_bwd_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -53,6 +56,35 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, tol):
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * feat.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, tol):
+    feat, boxes = _roi_case(cuda, dtype, r=512)
+    n, h, w, c = feat.shape
+    g = torch.randn(n, 512, 7, 7, c, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    g[:, 400:] = 0                                       # padded rows of the masked losses
+    before = roi_align_cuda.BWD_KERNEL.launches
+    got = roi_align_cuda.roi_align_backward(g, boxes, feat.shape, dtype, 1.0 / 16, 7, 2)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.BWD_KERNEL.launches == before + 1
+    wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, dtype)
+    want = roi_align_bwd_plain(wy, wx, g)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+def test_roi_align_autograd_runs_both_kernels(cuda):
+    feat, boxes = _roi_case(cuda, torch.bfloat16, r=64)
+    feat.requires_grad_(True)
+    fwd, bwd = roi_align_cuda.KERNEL.launches, roi_align_cuda.BWD_KERNEL.launches
+    out = roi_align_cuda.roi_align(feat, boxes, 1.0 / 16, 7, 2)
+    (df,) = torch.autograd.grad(out.float().square().sum(), feat)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.KERNEL.launches == fwd + 1
+    assert roi_align_cuda.BWD_KERNEL.launches == bwd + 1
+    assert df.dtype == torch.bfloat16 and torch.isfinite(df.float()).all() and df.abs().sum() > 0
 
 
 @pytest.mark.parametrize("k,max_keep,thresh,classes", [
