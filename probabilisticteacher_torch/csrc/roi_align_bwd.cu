@@ -33,11 +33,11 @@
 // agree within a tolerance, not bit for bit.
 //
 // What bounds it: at the recipe's student shape (48 x 512 ROIs on 48 x 38x84x512
-// bf16) the function reads g (1.23 GB) and writes dF (0.16 GB), and the scratch
-// adds 0.31 GB written and read; the 16 taps x (mul + add) per channel and bin
-// are 0.02 TFLOP, so bytes bound it. About 512 ROIs of one image add into one
-// 38x84 map, so the atomics contend in L2: that, not HBM, is what this simple
-// design meets first.
+// bf16) the function reads g (1.23 GB) and writes dF (0.16 GB); the 16 taps x
+// (mul + add) per channel and bin are 0.02 TFLOP, so bytes bound it. The f32
+// scratch (0.31 GB, zeroed, then read by the cast) is a cost of this design, not
+// of the function. About 512 ROIs of one image add into one 38x84 map, so the
+// atomics contend in L2: that, not HBM, is what this simple design meets first.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -192,12 +192,13 @@ const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 
 // g (N, R, p, p, C) in the feature dtype (0 = f32, 1 = bf16); boxes (N, R, 4) f32
 // XYXY in image coordinates; scratch (N, H, W, C) f32; out (N, H, W, C) in the
-// feature dtype (for f32, out may be the scratch itself). C must be a multiple of
+// feature dtype: for f32, out must be the scratch itself. C must be a multiple of
 // 4, every pointer 16-byte aligned (the wrapper checks). Zeroes the scratch,
 // scatters, and casts, all on `stream`; returns cudaGetLastError().
 int pt_roi_align_bwd(const void* g, const void* boxes, void* scratch, void* out, int n, int h,
                      int w, int c, int r, int p, int s, float scale, int dtype, void* stream) {
-  if (p > kMaxBins || s > kMaxS || s < 1 || 2 * p > kThreads || c % 4) {
+  if (p > kMaxBins || s > kMaxS || s < 1 || 2 * p > kThreads || c % 4 ||
+      (dtype == 0 && out != scratch)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
@@ -227,9 +228,6 @@ int pt_roi_align_bwd(const void* g, const void* boxes, void* scratch, void* out,
       cast_bf16_kernel<<<blocks, kThreads, 0, st>>>((const float*)scratch,
                                                     (__nv_bfloat16*)out, n4);
     }
-  } else if (out != scratch) {
-    err = cudaMemcpyAsync(out, scratch, elems * sizeof(float), cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -128,3 +128,42 @@ def test_nms_kernel_matches_the_cpu_plain_version(cuda):
     want = tnms.nms(boxes, scores, valid, 0.6, 300)
     got = nms_cuda.nms(boxes.to(cuda), scores.to(cuda), valid.to(cuda), 0.6, 300)
     assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+def _drop_center_bin(grad):
+    """K2 that loses one of the 49 bins of every ROI."""
+    grad = grad.clone()
+    grad[:, :, 3, 3] = 0
+    return grad, lambda df: df
+
+
+def _shift_one_column(grad):
+    """K2 whose scatter lands one map column to the right."""
+    return grad, lambda df: torch.cat([torch.zeros_like(df[:, :, :1]), df[:, :, :-1]], 2)
+
+
+@pytest.mark.parametrize("fault", [_drop_center_bin, _shift_one_column])
+def test_train_reference_catches_a_planted_k2_fault(cuda, monkeypatch, fault):
+    """The card-vs-CPU gradient check of ``chip_smoke.py`` (phase 7) fails when K2
+    is wrong. The fault is planted around the kernel's wrapper, on CUDA tensors
+    only, so the CPU side keeps the plain backward. The readings are printed
+    (run with ``-s``) beside the clean ones, to show how far the limit lies from a
+    fault."""
+    import chip_smoke
+
+    clean = chip_smoke.train_reference_errors(cuda)
+    real = roi_align_cuda.roi_align_backward
+
+    def faulty(grad, *args):
+        if grad.device.type != "cuda":
+            return real(grad, *args)
+        grad, post = fault(grad)
+        return post(real(grad, *args))
+
+    monkeypatch.setattr(roi_align_cuda, "roi_align_backward", faulty)
+    bad = chip_smoke.train_reference_errors(cuda)
+    print(f"\n[planted K2 fault] {fault.__name__}: gradient error {bad['grad_err']!r} "
+          f"({bad['worst']}), loss error {bad['loss_err']!r}; clean {clean['grad_err']!r}; "
+          f"limit {chip_smoke.TRAIN_REF_GRAD_TOL}")
+    assert clean["grad_err"] <= chip_smoke.TRAIN_REF_GRAD_TOL
+    assert bad["grad_err"] > chip_smoke.TRAIN_REF_GRAD_TOL
