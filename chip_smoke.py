@@ -12,9 +12,12 @@ Phases (each failure exits non-zero; none is caught and passed over):
    the plain version rounds its interpolation matrices and intermediate to bf16,
    as the JAX package does) and f32 (1e-5 * max|F|), with boxes that run off the
    map and degenerate boxes;
-3. NMS kernel vs its plain version at 8 x 12000 -> 2000 @ 0.7 and class-aware
-   8 x 16000 -> 100 @ 0.5, with bf16-quantised (tied) scores, duplicate boxes and
-   chains: indices and valid masks exactly equal;
+3. NMS kernel vs its plain version at the inference shapes, 8 x 12000 -> 2000
+   @ 0.7 and class-aware 8 x 16000 -> 100 @ 0.5, and at the train step's own:
+   the student's RPN 48 x 12000 -> 2000, the teacher's RPN 16 x 12000 -> 2000
+   and its class-aware 16 x 16000 -> 100; clustered boxes that fill the RPN's
+   budget, bf16-quantised (tied) scores, duplicate boxes and chains: indices and
+   valid masks exactly equal;
 4. the inference slice at full width (VGG16, 8 classes, learnable anchors, AMP
    bf16, canvas 608 x 1344, batch 8, seeded random weights): ``detect``,
    ``pseudo_labels`` and ``Predictor`` a few times each, each path driven with the
@@ -79,9 +82,13 @@ N, CANVAS, FEAT = 8, (608, 1344), (38, 84, 512)
 TRAIN_N = 16                   # IMG_PER_BATCH_LABEL = IMG_PER_BATCH_UNLABEL of the recipe
 TRAIN_ROIS = (48, 512)         # the fused student pass: 2 x 16 labeled + 16 unlabeled images
 GT_PER_IMAGE = 20
-# (label, K, max_keep, IoU threshold, classes): the RPN NMS of pseudo_labels and
-# the class-aware NMS of its ROI inference
-NMS_CASES = (("rpn", 12000, 2000, 0.7, 0), ("class", 16000, 100, 0.5, 8))
+# (label, images, K, max_keep, IoU threshold, classes): the RPN NMS of
+# pseudo_labels and the class-aware NMS of its ROI inference at batch 8, then the
+# three calls of one mutual step: the student's RPN (2 x 16 labeled views + 16
+# unlabeled images), the teacher's RPN and the teacher's class-aware NMS
+NMS_CASES = (("rpn", 8, 12000, 2000, 0.7, 0), ("class", 8, 16000, 100, 0.5, 8),
+             ("rpn_student", 48, 12000, 2000, 0.7, 0), ("rpn_teacher", 16, 12000, 2000, 0.7, 0),
+             ("class_teacher", 16, 16000, 100, 0.5, 8))
 PREDICTOR_HW = (600, 1200)     # resizes to itself: no PIL
 IMAGE_HW = ((600, 1200), (608, 1344), (600, 800), (450, 1344),
             (608, 1000), (500, 1100), (600, 1333), (333, 600))
@@ -209,10 +216,10 @@ def iou_pairs(boxes_s, keep, valid_s, thresh) -> int:
 def phase_nms(dev) -> dict:
     gen = torch.Generator().manual_seed(2)
     out = {}
-    for label, k, max_keep, thresh, classes in NMS_CASES:
-        boxes, scores, valid = (x.to(dev) for x in nms_case(gen, N, k))
+    for label, n, k, max_keep, thresh, classes in NMS_CASES:
+        boxes, scores, valid = (x.to(dev) for x in nms_case(gen, n, k))
         if classes:
-            cls = torch.randint(0, classes, (N, k), generator=gen).to(dev)
+            cls = torch.randint(0, classes, (n, k), generator=gen).to(dev)
             got = nms_cuda.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
             want = plain_nms.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
             boxes = plain_nms.class_offset_boxes(boxes, cls, valid)
@@ -222,22 +229,24 @@ def phase_nms(dev) -> dict:
         torch.cuda.synchronize()
         same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         kept = int(got[1].sum())
-        log(f"[nms] {label} {N}x{k}->{max_keep} @{thresh}: kept {kept}, "
-            f"indices and valid masks equal: {same}")
+        log(f"[nms] {label} {n}x{k}->{max_keep} @{thresh}: kept {kept} "
+            f"({kept / n!r} per image), indices and valid masks equal: {same}")
         check(same, f"nms kernel keep set differs from the plain version ({label})")
         check(kept > 0, f"nms kept nothing ({label})")
         order, b_s, a_s, v_s = plain_nms.sort_by_score(boxes, scores, valid)
         keep = nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep)
         ms = cuda_ms(lambda: nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep), reps=10)
+        # the plain scan takes ~1 s at 48 images: one timed call there
         plain_ms = cuda_ms(lambda: plain_nms.greedy_keep(b_s, a_s, v_s, thresh, max_keep),
-                           reps=2, warm=1)
+                           reps=1 if n > 16 else 2, warm=0 if n > 16 else 1)
         pairs = iou_pairs(b_s, keep, v_s, thresh)
-        nbytes = N * k * (16 + 4 + 1 + 1)
+        nbytes = n * k * (16 + 4 + 1 + 1)
         ops = pairs * IOU_OPS
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
         log(f"[nms] {label}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
             f"({pairs} IoU pairs, {nbytes} B)")
-        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        out[label] = {"images": n, "k": k, "max_keep": max_keep, "thresh": thresh,
+                      "kept": kept, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
                       else "operations"}
     rpn = out["rpn"]
@@ -245,8 +254,8 @@ def phase_nms(dev) -> dict:
             "replaces": "probabilisticteacher_tpu/ops/nms_pallas.py:54", "max_abs_err": 0.0,
             "ms": rpn["ms"], "plain_ms": rpn["plain_ms"], "bound_ms": rpn["bound_ms"],
             "bound_by": rpn["bound_by"], "library_ms": None,
-            "shape": "rpn 8x12000->2000 @0.7 (ms, plain_ms, bound_ms); class-aware below",
-            "class_nms_8x16000_100": out["class"]}
+            "shape": "rpn 8x12000->2000 @0.7 (ms, plain_ms, bound_ms); every case in cases",
+            "cases": out}
 
 
 # --------------------------------------------------------------------- phase 4

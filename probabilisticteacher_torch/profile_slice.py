@@ -18,7 +18,8 @@ one JSON line per path:
   12 largest of each, and the device's busy share of the profiled call's wall
   time (the profiler's own overhead lengthens that call). For the train steps,
   ``roi_align_bwd_ms`` is the ROIAlign backward kernel's (K2's) share of the
-  backward, from the same trace.
+  backward, and ``nms_keep_ms`` the NMS kernel's (K3's) time over the whole step
+  (student RPN, teacher RPN, teacher class-aware NMS), from the same trace.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -183,9 +184,11 @@ def _train(path, cfg, card):
     calls = _host_ms(one, REPS)
     prof, kernel_rows = _profile(one)
     k2 = sum(t for k, t in kernel_rows if "roi_align_bwd_kernel" in k or "cast_bf16_kernel" in k)
+    k3 = sum(t for k, t in kernel_rows if "nms_keep_kernel" in k)
     n_img = TRAIN_N if path == "burnin_step" else 2 * TRAIN_N
     return {"path": path, "labeled": TRAIN_N, "unlabeled": 0 if path == "burnin_step" else TRAIN_N,
-            "card": card, "stages_ms": mean, "roi_align_bwd_ms": k2, "call_ms": calls,
+            "card": card, "stages_ms": mean, "roi_align_bwd_ms": k2,
+            "nms_keep_ms": k3, "call_ms": calls,
             "img_per_s": n_img / (sum(calls) / len(calls) / 1e3),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **prof}
 

@@ -8,7 +8,10 @@ the numpy oracle ``tests/oracles.py::greedy_nms``. Cases follow
 ``tests/test_nms_pallas.py``: random and clustered boxes (long suppression chains),
 an IoU exactly at the threshold, all-invalid input, more survivors than the
 budget, several images at once, class-aware NMS, and bf16-quantised (tied) scores
-with duplicate boxes.
+with duplicate boxes. ``tests/nms_tile_cases.py`` adds cases at the CUDA kernel's
+64-row tile boundaries: chains and tied duplicates across them, K = 1, 63, 64, 65
+and 257, a budget that runs out inside a tile, a wholly invalid tile and no valid
+row at all.
 """
 
 import jax
@@ -22,6 +25,7 @@ from probabilisticteacher_tpu.ops import nms_pallas
 from probabilisticteacher_torch.ops import nms as tnms
 from probabilisticteacher_torch.ops import nms_cuda
 
+import nms_tile_cases
 from oracles import greedy_nms
 
 
@@ -152,3 +156,36 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
     want = _port(tnms.batched_nms, boxes, scores, cls, valid, iou_thresh=0.5, max_keep=50)
     assert nms_cuda.KERNEL.launches == before
     _assert_same(got, want)
+
+
+def _tile_case_expectations(name, idx, val, k):
+    """What each tile case was built to show, on the port's result."""
+    kept = idx[val]
+    if name in ("chain", "chain_3"):
+        step = 2 if name == "chain" else 3
+        for a, b in nms_tile_cases.CHAINS:
+            np.testing.assert_array_equal(kept[(kept >= a) & (kept < b)], np.arange(a, b, step))
+    elif name == "ties":
+        for a, b in nms_tile_cases.TIES:          # the first of each tied pair, in index order
+            np.testing.assert_array_equal(kept[(kept >= a) & (kept < b)], [a, a + 1])
+    elif name == "max_keep_in_tile":
+        assert val.sum() == 90 and kept[-1] == 98  # the 90th kept row sits inside tile 1
+    elif name == "invalid_tile":
+        assert not ((kept >= 64) & (kept < 128)).any() and (kept >= 128).any()
+    elif name == "all_invalid":
+        assert not val.any() and not idx.any()
+    else:
+        assert val.any() and kept.max() < k
+
+
+@pytest.mark.parametrize("name", nms_tile_cases.CPU_CASES)
+def test_tile_boundary_cases_match_both_jax_nms(name):
+    """The cases that cross the CUDA kernel's 64-row tiles: the plain version equals
+    the JAX blocked solver and the Pallas scan in interpret mode, bit for bit."""
+    boxes, scores, valid, max_keep, thresh = (x[0] if isinstance(x, np.ndarray) else x
+                                              for x in nms_tile_cases.make(name))
+    got = _port(tnms.nms, boxes, scores, valid, iou_thresh=thresh, max_keep=max_keep)
+    _tile_case_expectations(name, got[0], got[1], len(boxes))
+    args = (jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), thresh, max_keep)
+    _assert_same(got, jnms.nms(*args))
+    _assert_same(got, nms_pallas.nms(*args))
