@@ -1,4 +1,4 @@
-// Exact greedy NMS over score-sorted boxes, for Hopper (sm_90a).
+// Exact greedy NMS over score-sorted boxes, for Hopper (sm_90a): a tiled greedy scan.
 //
 // Replaces the TPU kernel probabilisticteacher_tpu/ops/nms_pallas.py:54 (`_kernel`,
 // launched by `nms`), a sequential scan with one loop iteration per kept box.
@@ -14,19 +14,42 @@
 // with -fmad=false: a fused multiply-add in the union would move IoUs that sit
 // next to the threshold and change keep sets.
 //
-// Design: one block per image, so one launch covers the batch. Only the
-// suppression bits live in shared memory (one bit per row: 16000 rows = 2 KB);
-// the coordinates stay in global memory, where L1/L2 hold them (16000 rows x 5
-// f32 = 320 KB would not fit 227 KB of shared memory). Each iteration,
-//   1. warp 0 finds the first unsuppressed row at or after the frontier with
-//      __ballot_sync/__ffs over the bit words, 32 words (1024 rows) per step;
-//   2. every warp takes 32 later rows at a time, compares those not yet
-//      suppressed with the kept row, and ORs the ballot of `iou > t` into the
-//      row word it owns (no atomics: one warp per word per iteration).
+// Design: one block of 1024 threads per image, one launch for the batch. The
+// sorted rows go in tiles of 64. Shared memory holds the suppression bits (one
+// bit per row, 2 KB at 16000 rows; invalid rows and the padding past k start
+// set), the tile's boxes and areas, its 64 intra-tile bit rows, and the rows it
+// kept with their coordinates. The coordinates of all rows stay in global memory
+// (16000 x 20 B = 320 KB would not fit), where L1 and L2 hold them. Per tile:
+//   1. every warp loads the tile's 64 rows (two per lane) and takes two of its
+//      rows i, passed to the lanes by shuffles: bit j of later[i] is set when
+//      j > i and i suppresses j; only rows still open (valid, unsuppressed) count.
+//      Barrier.
+//   2. thread 0 walks the tile's open rows in order in a register: the lowest
+//      open row is kept, appended to the kept list and written to `keep`, and the
+//      rows it suppresses leave the open set; it stops at max_keep. Barrier.
+//   3. warps take the 32-row words after the tile, one warp per word (so the
+//      ballot is ORed in without atomics); each lane loads an open row once and
+//      tests it against the tile's kept rows in order, from shared memory,
+//      stopping at the first hit. Barrier.
+// A tile with no open row costs no barrier; the scan ends at max_keep.
 //
-// What bounds it: operations, and latency. The work is one IoU (~13 f32
-// operations) per (kept row, later row) pair, and each kept row costs two block
-// barriers; with only N blocks the card is mostly idle at this batch.
+// Why it is exact: a row is kept iff it is valid and no earlier kept row has
+// IoU > t with it. Step 3 applies every kept row of earlier tiles to it, and
+// since suppression is an OR the order of those tests does not change its bit;
+// step 2 applies the earlier kept rows of its own tile, in row order.
+//
+// What bounds it: one SM per image. Barriers and global box loads come to ~3
+// per 64-row tile instead of ~2 per kept row (the earlier design, one block-wide
+// pass per kept row); the serial part is the walk of step 2, a few shared-memory
+// loads per kept row. The IoUs are those the greedy scan needs, about
+// kept x later open rows, each ~13 f32 operations and a correctly rounded
+// division, on the 128 f32 lanes of the image's one SM: the operation bound
+// counts all 132 SMs, and 8, 16 or 48 images use that many. On the H100 an image
+// of 12000 rows keeping 2000 (~20.5 M IoUs) takes ~3.0 ms: 33-37 lane-cycles per
+// IoU at 1.76-1.98 GHz, near the ~25-30 instructions an IoU and its loop issue.
+// Spreading an image over a thread-block cluster is the next step.
+// ptxas (sm_90a, -O3 -fmad=false): 32 registers, 3088 B of static shared memory
+// plus 8 B per 64 rows (1.5 KB at 12000 rows), no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +57,8 @@
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kTile = 64;
+constexpr uint32_t kAll = 0xffffffffu;
 
 __device__ __forceinline__ bool suppresses(const float4 a, const float aa, const float4 b,
                                            const float ab, const float t) {
@@ -45,74 +70,117 @@ __device__ __forceinline__ bool suppresses(const float4 a, const float aa, const
   return iou > t;
 }
 
+__device__ __forceinline__ float4 shfl4(const float4 v, const int src) {
+  return make_float4(__shfl_sync(kAll, v.x, src), __shfl_sync(kAll, v.y, src),
+                     __shfl_sync(kAll, v.z, src), __shfl_sync(kAll, v.w, src));
+}
+
 __global__ void __launch_bounds__(kThreads)
 nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area,
                 const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep, int k,
                 float t, int max_keep) {
   extern __shared__ uint32_t supp[];  // bit i of word i/32: row i is suppressed
-  __shared__ int next_row;
+  __shared__ float4 tile_box[kTile];
+  __shared__ float tile_area[kTile];
+  __shared__ unsigned long long later[kTile];  // bit j of row i: i suppresses j > i
+  __shared__ float4 kept_box[kTile];
+  __shared__ float kept_area[kTile];
+  __shared__ int tile_kept;
+  __shared__ int done;
   const size_t base = (size_t)blockIdx.x * k;
   boxes += base;
   area += base;
   valid += base;
   keep += base;
-  const int nwords = (k + 31) >> 5;
+  const int ntiles = (k + kTile - 1) / kTile;
+  const int nwords = ntiles * 2;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
 
-  // invalid rows (and the padding bits past k) start suppressed
-  for (int wi = threadIdx.x; wi < nwords; wi += blockDim.x) {
-    uint32_t bits = 0;
-    for (int b = 0; b < 32; ++b) {
-      const int i = (wi << 5) + b;
-      if (i >= k || !valid[i]) bits |= 1u << b;
-    }
-    supp[wi] = bits;
+  // invalid rows and the padding bits past k start suppressed
+  for (int wi = warp; wi < nwords; wi += nwarps) {
+    const int i = (wi << 5) + lane;
+    const uint32_t bits = __ballot_sync(kAll, i >= k || !valid[i]);
+    if (lane == 0) supp[wi] = bits;
   }
   for (int i = threadIdx.x; i < k; i += blockDim.x) keep[i] = 0;
   __syncthreads();
 
-  int frontier = 0;  // every thread holds the same frontier and count
-  int kept = 0;
-  while (frontier < k && kept < max_keep) {
+  int total = 0;  // rows kept so far; only thread 0's copy is used
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int row0 = tile * kTile;
+    // every thread reads the same words: the last writes were before a barrier
+    const unsigned long long open =
+        ~((unsigned long long)supp[2 * tile] | ((unsigned long long)supp[2 * tile + 1] << 32));
+    if (open == 0) continue;
+
+    // 1. the tile's intra-tile bits
+    const bool open_lo = (open >> lane) & 1ull;
+    const bool open_hi = (open >> (lane + 32)) & 1ull;
+    float4 b_lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b_hi = b_lo;
+    float a_lo = 0.0f, a_hi = 0.0f;
+    if (open_lo) {
+      b_lo = boxes[row0 + lane];
+      a_lo = area[row0 + lane];
+    }
+    if (open_hi) {
+      b_hi = boxes[row0 + 32 + lane];
+      a_hi = area[row0 + 32 + lane];
+    }
     if (warp == 0) {
-      int found = k;
-      const int w0 = frontier >> 5;
-      for (int wb = w0; wb < nwords; wb += 32) {
-        const int wi = wb + lane;
-        uint32_t open = 0;
-        if (wi < nwords) {
-          open = ~supp[wi];
-          if (wi == w0) open &= ~0u << (frontier & 31);
-        }
-        const uint32_t ballot = __ballot_sync(0xffffffffu, open != 0);
-        if (ballot != 0) {
-          const int src = __ffs(ballot) - 1;
-          const uint32_t bits = __shfl_sync(0xffffffffu, open, src);
-          found = ((wb + src) << 5) + __ffs(bits) - 1;
-          break;
-        }
-      }
-      if (lane == 0) next_row = found;
+      tile_box[lane] = b_lo;
+      tile_area[lane] = a_lo;
+      tile_box[lane + 32] = b_hi;
+      tile_area[lane + 32] = a_hi;
+    }
+    for (int r = warp; r < kTile; r += nwarps) {
+      if (!((open >> r) & 1ull)) continue;  // uniform across the warp
+      const bool upper = r >= 32;
+      const float4 bi = shfl4(upper ? b_hi : b_lo, r & 31);
+      const float ai = __shfl_sync(kAll, upper ? a_hi : a_lo, r & 31);
+      const bool s_lo = open_lo && lane > r && suppresses(bi, ai, b_lo, a_lo, t);
+      const bool s_hi = open_hi && lane + 32 > r && suppresses(bi, ai, b_hi, a_hi, t);
+      const uint32_t lo = __ballot_sync(kAll, s_lo);
+      const uint32_t hi = __ballot_sync(kAll, s_hi);
+      if (lane == 0) later[r] = (unsigned long long)lo | ((unsigned long long)hi << 32);
     }
     __syncthreads();
-    const int j = next_row;
-    if (j >= k) break;
-    if (threadIdx.x == 0) keep[j] = 1;
-    if (++kept >= max_keep) break;
 
-    const float4 bj = boxes[j];
-    const float aj = area[j];
-    for (int wi = ((j + 1) >> 5) + warp; wi < nwords; wi += nwarps) {
-      const int i = (wi << 5) + lane;
+    // 2. resolve the tile in row order
+    if (threadIdx.x == 0) {
+      unsigned long long rest = open;
+      int nk = 0;
+      while (rest != 0) {
+        const int r = __ffsll((long long)rest) - 1;
+        kept_box[nk] = tile_box[r];
+        kept_area[nk] = tile_area[r];
+        ++nk;
+        keep[row0 + r] = 1;
+        rest &= ~later[r] & (rest - 1);  // drop row r and the rows it suppresses
+        if (++total >= max_keep) break;
+      }
+      tile_kept = nk;
+      done = total >= max_keep;
+    }
+    __syncthreads();
+    if (done) break;
+
+    // 3. the tile's kept rows suppress later rows
+    const int nk = tile_kept;
+    for (int wi = 2 * (tile + 1) + warp; wi < nwords; wi += nwarps) {
       const uint32_t word = supp[wi];
+      if (word == kAll) continue;  // uniform across the warp
       bool s = false;
-      if (i > j && i < k && !((word >> lane) & 1u)) s = suppresses(bj, aj, boxes[i], area[i], t);
-      const uint32_t ballot = __ballot_sync(0xffffffffu, s);
+      if (!((word >> lane) & 1u)) {
+        const int i = (wi << 5) + lane;
+        const float4 b = boxes[i];
+        const float a = area[i];
+        for (int q = 0; q < nk && !s; ++q) s = suppresses(kept_box[q], kept_area[q], b, a, t);
+      }
+      const uint32_t ballot = __ballot_sync(kAll, s);
       if (lane == 0 && ballot != 0) supp[wi] = word | ballot;
     }
-    frontier = j + 1;
     __syncthreads();
   }
 }
@@ -128,8 +196,8 @@ const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // image on `stream`. Returns cudaGetLastError() after the launch.
 int pt_nms_keep(const void* boxes, const void* area, const void* valid, void* keep, int n,
                 int k, float thresh, int max_keep, void* stream) {
-  const size_t smem = (size_t)((k + 31) / 32) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
+  const size_t smem = (size_t)((k + kTile - 1) / kTile) * 2 * sizeof(uint32_t);
+  if (smem > 40 * 1024) {  // 48 KB less the static arrays
     const cudaError_t e = cudaFuncSetAttribute(
         nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

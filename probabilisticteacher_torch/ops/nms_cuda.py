@@ -3,6 +3,9 @@
 The sort by score, the areas and the fixed-buffer scatter stay in PyTorch, as
 the JAX package keeps them outside its ``pallas_call``; the kernel takes the
 sorted rows and returns the keep mask, one block per image, one launch per call.
+It scans the rows in tiles of 64: the tile's own bits, a walk over them in
+order by one thread, then the tile's kept rows suppress the later rows, with
+three block barriers per tile instead of two per kept row.
 A CPU tensor takes the plain :func:`ops.nms.greedy_keep`; a CUDA tensor launches
 the kernel or raises.
 """

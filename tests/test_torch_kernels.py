@@ -10,13 +10,14 @@ Tolerances: ROIAlign forward bf16 2e-2 * max|F| (the plain version rounds its
 interpolation matrices and the y-interpolated intermediate to bf16, as the JAX
 package does), f32 1e-5 * max|F|; ROIAlign backward bf16 2e-2 * max|dF| and f32
 1e-5 * max|dF| (the kernel adds with f32 atomics in no fixed order); NMS keep sets
-exactly equal.
+exactly equal, the tile-boundary cases of ``nms_tile_cases.py`` included.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import nms_tile_cases
 from probabilisticteacher_torch.ops import nms as tnms
 from probabilisticteacher_torch.ops import nms_cuda, roi_align_cuda
 from probabilisticteacher_torch.ops.roi_align import (batched_pool_matrices, roi_align_batched,
@@ -87,11 +88,8 @@ def test_roi_align_autograd_runs_both_kernels(cuda):
     assert df.dtype == torch.bfloat16 and torch.isfinite(df.float()).all() and df.abs().sum() > 0
 
 
-@pytest.mark.parametrize("k,max_keep,thresh,classes", [
-    (3000, 500, 0.7, 0), (12000, 2000, 0.7, 0), (4000, 100, 0.5, 8)])
-def test_nms_kernel_keep_sets_equal_plain(cuda, k, max_keep, thresh, classes):
+def _clustered_nms_case(k, classes, n=3):
     g = torch.Generator().manual_seed(k)
-    n = 3
     centers = torch.rand(n, k // 20 + 1, 2, generator=g) * 1000
     pick = torch.randint(0, centers.shape[1], (n, k), generator=g)
     xy = torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
@@ -101,10 +99,32 @@ def test_nms_kernel_keep_sets_equal_plain(cuda, k, max_keep, thresh, classes):
     boxes[:, 10:20] = boxes[:, 5:6]
     scores[:, 10:20] = scores[:, 5:6]
     valid = torch.rand(n, k, generator=g) > 0.1
+    cls = torch.randint(0, classes, (n, k), generator=g) if classes else None
+    return boxes, scores, valid, cls
+
+
+# (k, max_keep, thresh, classes) of clustered boxes, or the name of a tile case
+NMS_KERNEL_CASES = [(3000, 500, 0.7, 0), (12000, 2000, 0.7, 0), (4000, 100, 0.5, 8),
+                    *nms_tile_cases.CASES]
+
+
+@pytest.mark.parametrize("case", NMS_KERNEL_CASES, ids=str)
+def test_nms_kernel_keep_sets_equal_plain(cuda, case):
+    """Keep sets equal to the plain version on the card: clustered boxes with tied
+    scores, and the cases of ``nms_tile_cases`` that cross the kernel's 64-row
+    tiles (3 images each; 48 images of 12001 rows for ``large``)."""
+    if isinstance(case, str):
+        boxes, scores, valid, max_keep, thresh = nms_tile_cases.make(
+            case, n=48 if case == "large" else 3)
+        boxes, scores, valid = (torch.from_numpy(x) for x in (boxes, scores, valid))
+        cls = None
+    else:
+        k, max_keep, thresh, classes = case
+        boxes, scores, valid, cls = _clustered_nms_case(k, classes)
     boxes, scores, valid = boxes.to(cuda), scores.to(cuda), valid.to(cuda)
     before = nms_cuda.KERNEL.launches
-    if classes:
-        cls = torch.randint(0, classes, (n, k), generator=g).to(cuda)
+    if cls is not None:
+        cls = cls.to(cuda)
         got = nms_cuda.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
         want = tnms.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
     else:
@@ -114,7 +134,7 @@ def test_nms_kernel_keep_sets_equal_plain(cuda, k, max_keep, thresh, classes):
     assert nms_cuda.KERNEL.launches == before + 1
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
-    assert got[1].any()
+    assert bool(got[1].any()) == (case != "all_invalid")
 
 
 def test_nms_kernel_matches_the_cpu_plain_version(cuda):
