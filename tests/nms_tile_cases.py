@@ -40,7 +40,7 @@ def _clustered(rng, k, extent):
 
 
 def _image(name, rng):
-    k, max_keep, _ = CASES[name]
+    k = CASES[name][0]
     boxes = _clustered(rng, k, 200.0 if k < 1000 else 1300.0)
     scores = np.linspace(1.0, 0.01, k, dtype=np.float32)
     valid = rng.rand(k) > 0.1

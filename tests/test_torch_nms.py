@@ -182,8 +182,8 @@ def _tile_case_expectations(name, idx, val, k):
 def test_tile_boundary_cases_match_both_jax_nms(name):
     """The cases that cross the CUDA kernel's 64-row tiles: the plain version equals
     the JAX blocked solver and the Pallas scan in interpret mode, bit for bit."""
-    boxes, scores, valid, max_keep, thresh = (x[0] if isinstance(x, np.ndarray) else x
-                                              for x in nms_tile_cases.make(name))
+    boxes, scores, valid, max_keep, thresh = nms_tile_cases.make(name)
+    boxes, scores, valid = boxes[0], scores[0], valid[0]
     got = _port(tnms.nms, boxes, scores, valid, iou_thresh=thresh, max_keep=max_keep)
     _tile_case_expectations(name, got[0], got[1], len(boxes))
     args = (jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), thresh, max_keep)
