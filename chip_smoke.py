@@ -11,7 +11,8 @@ Phases (each failure exits non-zero; none is caught and passed over):
    (8, 2000) ROIs on an (8, 38, 84, 512) map, in bf16 (tolerance 2e-2 * max|F|:
    the plain version rounds its interpolation matrices and intermediate to bf16,
    as the JAX package does) and f32 (1e-5 * max|F|), with boxes that run off the
-   map and degenerate boxes;
+   map and degenerate boxes; then timed, bf16, at the train step's shapes too:
+   the student's (48, 512) and the teacher's (16, 2000) ROIs;
 3. NMS kernel vs its plain version at the inference shapes, 8 x 12000 -> 2000
    @ 0.7 and class-aware 8 x 16000 -> 100 @ 0.5, and at the train step's own:
    the student's RPN 48 x 12000 -> 2000, the teacher's RPN 16 x 12000 -> 2000
@@ -24,10 +25,12 @@ Phases (each failure exits non-zero; none is caught and passed over):
    kernels' launch counts set to 0 just before it and read just after; outputs
    finite and of their static shapes; then the card's slice against the CPU's
    plain path in f32 on a small input;
-5. ROIAlign backward kernel vs its plain version at the recipe's student shape,
-   (48, 512) ROIs on a (48, 38, 84, 512) map, bf16 (2e-2 * max|dF|) and f32
+5. ROIAlign backward kernel vs its plain version at the train step's shapes,
+   the student pass of a mutual step, (48, 512) ROIs on a (48, 38, 84, 512) map,
+   and of a burn-in step, (32, 512), bf16 (2e-2 * max|dF|) and f32
    (1e-5 * max|dF|), with the edge and degenerate boxes of phase 2 and zero
-   gradient rows; and how far two runs of the kernel differ (f32 atomics);
+   gradient rows; two runs of the kernel must give the same dF bit for bit; each
+   shape's time, bound and ``design_bytes`` (g read again by a second tile);
 6. the train steps at full width (the recipe ``configs/pt/final_c2f.yaml``: VGG16,
    8 classes, learnable anchors, AMP bf16, canvas 608 x 1344, 16 labeled + 16
    unlabeled images; seeded random weights, random pixels, 20 random boxes per
@@ -80,7 +83,12 @@ KERNELS = (roi_align_cuda.KERNEL, roi_align_cuda.BWD_KERNEL, nms_cuda.KERNEL)
 INFERENCE_KERNELS = (roi_align_cuda.KERNEL, nms_cuda.KERNEL)
 N, CANVAS, FEAT = 8, (608, 1344), (38, 84, 512)
 TRAIN_N = 16                   # IMG_PER_BATCH_LABEL = IMG_PER_BATCH_UNLABEL of the recipe
-TRAIN_ROIS = (48, 512)         # the fused student pass: 2 x 16 labeled + 16 unlabeled images
+# ROIAlign backward (label, images, ROIs per image): the fused student pass of a
+# mutual step (2 x 16 labeled views + 16 unlabeled images) and of a burn-in step
+BWD_CASES = (("student", 48, 512), ("burnin", 32, 512))
+# ROIAlign forward (label, images, ROIs per image) beside the inference shape: the
+# student pass and the teacher pass of a mutual step
+FWD_STEP_CASES = (("student", 48, 512), ("teacher", 16, 2000))
 GT_PER_IMAGE = 20
 # (label, images, K, max_keep, IoU threshold, classes): the RPN NMS of
 # pseudo_labels and the class-aware NMS of its ROI inference at batch 8, then the
@@ -159,22 +167,49 @@ def phase_roi_align(dev) -> dict:
         check(bool(torch.isfinite(got).all()), "roi_align output not finite")
         check(err <= tol * fmax, f"roi_align {dtype} differs from its plain version")
         result[str(dtype)[6:]] = err
-    feat = feat32.to(torch.bfloat16)
-    ms = cuda_ms(lambda: roi_align_cuda.roi_align(feat, boxes, 1.0 / 16, 7, 2), reps=20)
-    plain_ms = cuda_ms(lambda: roi_align_batched(feat, boxes, 1.0 / 16, 7, 2), reps=3, warm=1)
-    nbytes = feat.numel() * 2 + boxes.numel() * 4 + N * r * 49 * c * 2
-    ops = N * r * 49 * c * 33          # 4 samples x 4 taps x (mul + add), then the mean
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    log(f"[roi_align] bf16 (8, 2000) ROIs: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-        f"bound {bound_ms!r} ms ({nbytes} B, {ops} f32 ops)")
+    main = time_k1("inference", feat32.to(torch.bfloat16), boxes, reps=20, plain_reps=3)
+    del feat32
+    cases = {}
+    for label, n, r in FWD_STEP_CASES:
+        boxes_s = roi_boxes(gen, n, r, h, w).to(dev)
+        feat = torch.randn(n, h, w, c, generator=gen).to(dev, torch.bfloat16)
+        got = roi_align_cuda.roi_align(feat, boxes_s, 1.0 / 16, 7, 2)
+        want = roi_align_batched(feat, boxes_s, 1.0 / 16, 7, 2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= 2e-2 * feat.float().abs().max().item(),
+              f"roi_align bf16 differs from its plain version ({label})")
+        del got, want
+        cases[label] = {"rois": [n, r], "max_abs_err": err,
+                        **time_k1(label, feat, boxes_s, reps=10, plain_reps=1)}
+        del feat, boxes_s
     return {"name": "roi_align_fwd", "route": "cuda",
             "source": "probabilisticteacher_torch/csrc/roi_align_fwd.cu",
             "replaces": "probabilisticteacher_tpu/ops/roi_align_pallas.py:70",
             "max_abs_err": result["bfloat16"], "max_abs_err_f32": result["float32"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            **main, "library_ms": None, "cases": cases,
+            "shape": "features (8, 38, 84, 512) bf16, boxes (8, 2000, 4) (ms, plain_ms, "
+                     "bound_ms); the train step's shapes in cases"}
+
+
+def time_k1(label: str, feat: torch.Tensor, boxes: torch.Tensor, reps: int,
+            plain_reps: int) -> dict:
+    """K1's and its plain version's time on bf16 ``feat`` (N, H, W, C) and ``boxes``
+    (N, R, 4), and the bound: the bytes of features, boxes and output against the
+    f32 operations of 4 samples x 4 taps x (mul + add) and the mean per output."""
+    n, r = boxes.shape[:2]
+    c = feat.shape[-1]
+    ms = cuda_ms(lambda: roi_align_cuda.roi_align(feat, boxes, 1.0 / 16, 7, 2), reps=reps)
+    plain_ms = cuda_ms(lambda: roi_align_batched(feat, boxes, 1.0 / 16, 7, 2), reps=plain_reps,
+                       warm=1)
+    nbytes = feat.numel() * 2 + boxes.numel() * 4 + n * r * 49 * c * 2
+    ops = n * r * 49 * c * 33
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    log(f"[roi_align] {label} bf16 ({n}, {r}) ROIs: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+        f"bound {bound_ms!r} ms ({nbytes} B, {ops} f32 ops)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-            else "operations",
-            "library_ms": None, "shape": "features (8, 38, 84, 512) bf16, boxes (8, 2000, 4)"}
+            else "operations"}
 
 
 # --------------------------------------------------------------------- phase 3
@@ -393,58 +428,87 @@ def bwd_taps(wy: torch.Tensor, wx: torch.Tensor, g: torch.Tensor) -> int:
     return int((per_roi * live).sum())
 
 
+def bwd_design_bytes(wy: torch.Tensor, wx: torch.Tensor, plan, bin_bytes: int) -> int:
+    """g bytes the tiled backward reads beyond one read of each bin: a bin (q, x)
+    is read by every tile that holds one of its taps (a row of Wy[q] and a column
+    of Wx[x] with weights)."""
+    n, r, p, h = wy.shape
+    w = wx.shape[-1]
+
+    def tiles(m, size, t, count):                  # (N, R, p) tiles the rows reach
+        m = torch.nn.functional.pad(m != 0, (0, t * count - size))
+        return m.reshape(n, r, p, count, t).any(-1).sum(-1)
+
+    ny = tiles(wy, h, plan.th, plan.tiles_y)
+    nx = tiles(wx, w, plan.tw, plan.tiles_x)
+    reads = ny[..., :, None] * nx[..., None, :]   # (N, R, q, x)
+    return int((reads - 1).clamp(min=0).sum()) * bin_bytes
+
+
 def phase_roi_align_bwd(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(7)
     h, w, c = FEAT
-    n, r = TRAIN_ROIS
-    boxes = roi_boxes(torch.Generator().manual_seed(7), n, r, h, w).to(dev)
-    g32 = torch.randn(n, r, 7, 7, c, generator=gen, device=dev)
-    g32[:, r - 40:] = 0                    # padded ROI rows: the masked losses give them 0
-    result, rerun = {}, {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        g = g32.to(dtype)
-        got = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7, 2)
-        again = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7, 2)
-        wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, dtype)
-        want = roi_align_bwd_plain(wy, wx, g)
-        torch.cuda.synchronize()
-        scale = want.float().abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
-        rerun[str(dtype)[6:]] = (got.float() - again.float()).abs().max().item()
-        log(f"[roi_align_bwd] {str(dtype)[6:]}: max|kernel - plain| = {err!r} (limit {tol} * "
-            f"max|dF| = {tol * scale!r}); two kernel runs differ by {rerun[str(dtype)[6:]]!r}")
-        check(got.shape == (n, h, w, c) and got.dtype == dtype, "roi_align_bwd output shape")
-        check(bool(torch.isfinite(got).all()), "roi_align_bwd output not finite")
-        check(err <= tol * scale, f"roi_align_bwd {dtype} differs from its plain version")
-        result[str(dtype)[6:]] = err
-        del got, again, want
-    g = g32.to(torch.bfloat16)
-    del g32
-    wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, torch.bfloat16)
-    ms = cuda_ms(lambda: roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), torch.bfloat16,
-                                                           1.0 / 16, 7, 2), reps=10)
-    plain_ms = cuda_ms(lambda: roi_align_bwd_plain(wy, wx, g), reps=3, warm=1)
-    taps = bwd_taps(wy, wx, g)
-    map_elems = n * h * w * c
-    # the function's bytes: g and the boxes read, dF written; the f32 scratch
-    # (zeroed, then read by the cast) is this design's cost, reported beside them
-    nbytes = g.numel() * 2 + boxes.numel() * 4 + map_elems * 2
-    design_bytes = map_elems * 4 * 2
-    ops = taps * c * 2                     # a multiply and an add per channel and tap
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    log(f"[roi_align_bwd] bf16 (48, 512) ROIs: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-        f"bound {bound_ms!r} ms ({nbytes} B, {taps} taps, {ops} f32 ops); the f32 scratch "
-        f"adds {design_bytes} B ({design_bytes / HBM_BYTES_PER_S * 1e3!r} ms)")
+    cases = {}
+    for label, n, r in BWD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        boxes = roi_boxes(torch.Generator().manual_seed(7), n, r, h, w).to(dev)
+        g32 = torch.randn(n, r, 7, 7, c, generator=gen, device=dev)
+        g32[:, r - 40:] = 0                # padded ROI rows: the masked losses give them 0
+        err, rerun = {}, {}
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            g = g32.to(dtype)
+            got = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7, 2)
+            again = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7,
+                                                      2)
+            wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, dtype)
+            want = roi_align_bwd_plain(wy, wx, g)
+            torch.cuda.synchronize()
+            name = str(dtype)[6:]
+            scale = want.float().abs().max().item()
+            err[name] = (got.float() - want.float()).abs().max().item()
+            rerun[name] = (got.float() - again.float()).abs().max().item()
+            log(f"[roi_align_bwd] {label} {name}: max|kernel - plain| = {err[name]!r} (limit "
+                f"{tol} * max|dF| = {tol * scale!r}); two kernel runs differ by {rerun[name]!r}")
+            check(got.shape == (n, h, w, c) and got.dtype == dtype, "roi_align_bwd output shape")
+            check(bool(torch.isfinite(got).all()), "roi_align_bwd output not finite")
+            check(err[name] <= tol * scale, f"roi_align_bwd {dtype} differs from its plain version")
+            check(torch.equal(got, again), f"roi_align_bwd {dtype}: two runs differ ({label})")
+            del got, again, want
+        g = g32.to(torch.bfloat16)
+        del g32
+        wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, torch.bfloat16)
+        ms = cuda_ms(lambda: roi_align_cuda.roi_align_backward(
+            g, boxes, (n, h, w, c), torch.bfloat16, 1.0 / 16, 7, 2), reps=10)
+        plain_ms = cuda_ms(lambda: roi_align_bwd_plain(wy, wx, g), reps=3, warm=1)
+        taps = bwd_taps(wy, wx, g)
+        # the function's bytes: g and the boxes read, dF written; the design reads
+        # again the g of a bin whose taps reach more than one tile
+        nbytes = g.numel() * 2 + boxes.numel() * 4 + n * h * w * c * 2
+        plan = roi_align_cuda.bwd_plan(h, w, c, 7)
+        design_bytes = bwd_design_bytes(wy, wx, plan, c * 2)
+        ops = taps * c * 2                 # a multiply and an add per channel and tap
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        log(f"[roi_align_bwd] {label} bf16 ({n}, {r}) ROIs: kernel {ms!r} ms, plain "
+            f"{plain_ms!r} ms, bound {bound_ms!r} ms ({nbytes} B, {taps} taps, {ops} f32 ops); "
+            f"tiles {plan.tiles_y} x {plan.tiles_x} of {plan.th} x {plan.tw}, design_bytes "
+            f"{design_bytes}")
+        cases[label] = {"rois": [n, r], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "design_bytes": design_bytes, "max_abs_err": err,
+                        "run_to_run_max_abs_diff": rerun,
+                        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+                        else "operations"}
+        del g, wy, wx
+    st = cases[BWD_CASES[0][0]]
     return {"name": "roi_align_bwd", "route": "cuda",
             "source": "probabilisticteacher_torch/csrc/roi_align_bwd.cu",
             "replaces": "probabilisticteacher_tpu/ops/roi_align_pallas.py:228",
-            "max_abs_err": result["bfloat16"], "max_abs_err_f32": result["float32"],
-            "run_to_run_max_abs_diff": rerun,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "design_bytes": design_bytes,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-            else "operations",
-            "library_ms": None,
-            "shape": "dOut (48, 512, 7, 7, 512) bf16 -> dF (48, 38, 84, 512), 40 zero rows"}
+            "max_abs_err": st["max_abs_err"]["bfloat16"],
+            "max_abs_err_f32": st["max_abs_err"]["float32"],
+            "run_to_run_max_abs_diff": st["run_to_run_max_abs_diff"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "design_bytes": st["design_bytes"], "bound_by": st["bound_by"], "library_ms": None,
+            "shape": "dOut (48, 512, 7, 7, 512) bf16 -> dF (48, 38, 84, 512), 40 zero rows "
+                     "(ms, plain_ms, bound_ms); both train shapes in cases",
+            "cases": cases}
 
 
 # --------------------------------------------------------------------- phase 6

@@ -11,6 +11,7 @@ it everywhere, and every caller passes boxes that are already detached.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,11 +25,74 @@ KERNEL = CudaKernel(
 )
 BWD_KERNEL = CudaKernel(
     "roi_align_bwd.cu", "pt_roi_align_bwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
-                                                  ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the backward kernel's limits (csrc/roi_align_bwd.cu): the shared memory one block
+# may opt in to on sm_90, its threads, and p
+BWD_SMEM_BYTES = 232448
+BWD_THREADS = 512
+BWD_MAX_BINS = 32
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel tiles dF: tiles of ``th`` x ``tw`` map cells with
+    every channel, ``tiles_y`` x ``tiles_x`` of them per image; tables for ``batch``
+    ROIs at a time; ``smem`` bytes of shared memory a block."""
+    th: int
+    tw: int
+    tiles_y: int
+    tiles_x: int
+    batch: int
+    smem: int
+
+
+def bwd_smem(th: int, tw: int, c: int, p: int, batch: int) -> int:
+    """Shared memory of one block: the f32 accumulator (th, tw, C), the block's list
+    of ROIs and the tables of a batch of them (csrc/roi_align_bwd.cu)."""
+    return 4 * (th * tw * c + 4 * BWD_THREADS + batch * (p * (th + tw + 2) + tw + 2)
+                + BWD_THREADS // 32)
+
+
+def bwd_plan(h: int, w: int, c: int, p: int) -> BwdPlan:
+    """The tiling of ``csrc/roi_align_bwd.cu`` for an (H, W, C) map and p x p bins.
+
+    A column of a tile goes to a group of C / 16 lanes (C / 4 where C is not a
+    multiple of 16), so a block of 512 threads works on 512 / lanes columns at
+    once. For each batch size and band height, the widest tile that fits the
+    shared memory, evened out over the map. The plan taken minimises the tile
+    visits of a ROI about p cells across, (th + p)(tw + p) / (th tw), over the
+    share of the groups that have a column (tw over tw rounded up to a multiple
+    of the groups); then the fewest tiles. Raises where p is over 32 or a column
+    needs more than 512 lanes.
+    """
+    lanes = c // 16 if c % 16 == 0 else c // 4
+    if lanes > BWD_THREADS or p > BWD_MAX_BINS:
+        raise ValueError(f"roi_align_backward: {c} channels ({lanes} lanes a column) or "
+                         f"output_size {p} beyond the kernel's {BWD_THREADS} lanes and "
+                         f"{BWD_MAX_BINS} bins")
+    groups = BWD_THREADS // lanes
+    best = None
+    for batch in (32, 16, 8):
+        if 2 * p * batch > BWD_THREADS:
+            continue
+        for th in range(1, h + 1):
+            free = (BWD_SMEM_BYTES // 4 - 4 * BWD_THREADS - batch * (p * (th + 2) + 2)
+                    - BWD_THREADS // 32)
+            tw = min(w, free // (th * c + batch * (p + 1)))
+            if tw < 1:
+                break
+            ny, nx = -(-h // th), -(-w // tw)
+            th_e, tw_e = -(-h // ny), -(-w // nx)
+            used = tw_e / (-(-tw_e // groups) * groups)
+            key = ((th_e + p) * (tw_e + p) / (th_e * tw_e) / used, ny * nx)
+            if best is None or key < best[0]:
+                best = (key, BwdPlan(th_e, tw_e, ny, nx, batch,
+                                     bwd_smem(th_e, tw_e, c, p, batch)))
+    return best[1]
 
 
 def _check(shape, dtype: torch.dtype, device: torch.device, boxes: torch.Tensor, p: int,
@@ -82,7 +146,8 @@ def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor, feat_shape, dtyp
     """d features: grad (N, R, p, p, C), boxes (N, R, 4) -> (N, H, W, C) in ``dtype``.
 
     ``grad`` is cast to the feature dtype first, as the JAX package does. On the
-    card dF comes from f32 atomics, so its last bits vary from run to run.
+    card each block owns a tile of dF (:func:`bwd_plan`) and adds into it in a fixed
+    order, so dF is the same bit for bit from run to run.
     """
     n, h, w, c = feat_shape
     p, s = output_size, max(sampling_ratio, 1)
@@ -97,13 +162,13 @@ def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor, feat_shape, dtyp
         raise ValueError(f"roi_align_backward: grad {tuple(grad.shape)} is not "
                          f"{(n, r, p, p, c)} with C a multiple of 4")
     _check_aligned(grad, "roi_align_backward", "grad (N, R, p, p, C)")
+    plan = bwd_plan(h, w, c, p)
     boxes = boxes.to(torch.float32).contiguous()
-    # sized from the real dtype: an f32 map accumulates in place
-    scratch = torch.empty((n, h, w, c), dtype=torch.float32, device=grad.device)
-    out = scratch if dtype == torch.float32 else torch.empty((n, h, w, c), dtype=dtype,
-                                                             device=grad.device)
-    BWD_KERNEL.launch(grad.data_ptr(), boxes.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                      n, h, w, c, r, p, s, float(spatial_scale), _DTYPES[dtype],
+    out = torch.empty((n, h, w, c), dtype=dtype, device=grad.device)
+    if out.numel() == 0:
+        return out
+    BWD_KERNEL.launch(grad.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, h, w, c, r, p, s,
+                      float(spatial_scale), _DTYPES[dtype], plan.th, plan.tw, plan.batch,
                       torch.cuda.current_stream(grad.device).cuda_stream)
     return out
 

@@ -183,7 +183,7 @@ def _train(path, cfg, card):
     mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
     calls = _host_ms(one, REPS)
     prof, kernel_rows = _profile(one)
-    k2 = sum(t for k, t in kernel_rows if "roi_align_bwd_kernel" in k or "cast_bf16_kernel" in k)
+    k2 = sum(t for k, t in kernel_rows if "roi_align_bwd_kernel" in k)
     k3 = sum(t for k, t in kernel_rows if "nms_keep_kernel" in k)
     n_img = TRAIN_N if path == "burnin_step" else 2 * TRAIN_N
     return {"path": path, "labeled": TRAIN_N, "unlabeled": 0 if path == "burnin_step" else TRAIN_N,

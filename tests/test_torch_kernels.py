@@ -9,8 +9,10 @@ fixture, never at import, so every pytest worker collects the same tests.
 Tolerances: ROIAlign forward bf16 2e-2 * max|F| (the plain version rounds its
 interpolation matrices and the y-interpolated intermediate to bf16, as the JAX
 package does), f32 1e-5 * max|F|; ROIAlign backward bf16 2e-2 * max|dF| and f32
-1e-5 * max|dF| (the kernel adds with f32 atomics in no fixed order); NMS keep sets
-exactly equal, the tile-boundary cases of ``nms_tile_cases.py`` included.
+1e-5 * max|dF| (the kernel does not round its intermediate to bf16), on the
+tile-crossing cases of ``roi_bwd_cases.py`` too, and two launches bit-identical
+(each block adds into its own tile in a fixed order); NMS keep sets exactly
+equal, the tile-boundary cases of ``nms_tile_cases.py`` included.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 import nms_tile_cases
+import roi_bwd_cases
 from probabilisticteacher_torch.ops import nms as tnms
 from probabilisticteacher_torch.ops import nms_cuda, roi_align_cuda
 from probabilisticteacher_torch.ops.roi_align import (batched_pool_matrices, roi_align_batched,
@@ -67,13 +70,39 @@ def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, tol):
     g[:, 400:] = 0                                       # padded rows of the masked losses
     before = roi_align_cuda.BWD_KERNEL.launches
     got = roi_align_cuda.roi_align_backward(g, boxes, feat.shape, dtype, 1.0 / 16, 7, 2)
+    again = roi_align_cuda.roi_align_backward(g, boxes, feat.shape, dtype, 1.0 / 16, 7, 2)
     torch.cuda.synchronize()
-    assert roi_align_cuda.BWD_KERNEL.launches == before + 1
+    assert roi_align_cuda.BWD_KERNEL.launches == before + 2
+    assert torch.equal(got, again)
     wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, dtype)
     want = roi_align_bwd_plain(wy, wx, g)
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", list(roi_bwd_cases.CASES))
+def test_roi_align_bwd_kernel_tile_cases(cuda, name, dtype, tol):
+    """K2 against the plain version on the cases that cross its tiles (rows and
+    columns); two launches bit-identical. An image with a non-finite box, where
+    the plain dF is NaN, must come out finite (its taps are clamped to the map)."""
+    shape, boxes, g, nonfinite = roi_bwd_cases.make(name)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    g = torch.from_numpy(g).to(cuda, dtype)
+    got = roi_align_cuda.roi_align_backward(g, boxes, shape, dtype, 1.0 / 16, 7, 2)
+    again = roi_align_cuda.roi_align_backward(g, boxes, shape, dtype, 1.0 / 16, 7, 2)
+    wy, wx = batched_pool_matrices(boxes, shape[1], shape[2], 1.0 / 16, 7, 2, dtype)
+    want = roi_align_bwd_plain(wy, wx, g).float()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    assert torch.equal(got, again)
+    assert torch.isfinite(got.float()).all()
+    finite = [i for i in range(shape[0]) if i not in nonfinite]
+    err = (got.float()[finite] - want[finite]).abs().max().item()
+    assert err <= tol * want[finite].abs().max().item(), err
+    if name == "no_live_roi":
+        assert not got[1].any()
 
 
 def test_roi_align_autograd_runs_both_kernels(cuda):
