@@ -34,8 +34,8 @@ CASES = {
     "c16": (2, 38, 84, 16, 40),
     "c64": (2, 38, 84, 64, 40),
     "c512": (1, 38, 84, 512, 24),
-    "c24": (2, 12, 20, 24, 16),
-    "tiny": (2, 12, 20, 16, 32),
+    "c24": (2, 12, 20, 24, 8),
+    "tiny": (2, 12, 20, 16, 16),
     "whole": (1, 38, 84, 64, 8),
     "edges": (2, 12, 20, 16, 16),
     "no_live_roi": (2, 12, 20, 16, 16),
