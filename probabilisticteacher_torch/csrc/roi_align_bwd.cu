@@ -13,9 +13,9 @@
 // Owner computes, as the TPU kernel does: `_bwd_kernel` holds the f32 accumulator
 // of one image's w-chunk, all rows and channels, in VMEM and streams the image's
 // ROIs through it. A block here owns one tile of one image's dF, th x tw map cells
-// with every channel, as an f32 accumulator in shared memory (7 x 14 cells x 512
-// channels, 196 KB, on the recipe's 38 x 84 x 512 map; the wrapper's `bwd_plan`
-// sizes the tiles). It walks its image's ROIs in order:
+// with every channel, as an f32 accumulator in shared memory; the wrapper's
+// `bwd_plan` sizes the tiles and lays out the shared memory (`bwd_smem`). The
+// block walks its image's ROIs in order:
 //
 // - the ROIs come in chunks of 512, a thread each: a ROI whose footprint (the taps
 //   of its first and last bins; the bins are monotone) misses the tile is
@@ -23,30 +23,34 @@
 // - the listed ROIs go in batches of up to 32. One thread per (ROI, axis, bin)
 //   writes its bin's row of Wy over the tile's rows, or of Wx over its columns,
 //   and sets its bit in the masks of the bins with weight in the tile and of the
-//   bins x that reach each column (ORs into shared memory); then a barrier;
-// - a column of the tile belongs to a group of C/16 lanes (a warp at C = 512),
-//   each lane holding 16 channels 4 at a time, so that a warp's loads and shared
-//   memory accesses are contiguous and its control flow uniform. For each ROI of
-//   the batch, each of its columns in the tile and each bin q with weight in the
-//   tile: t = sum_x Wx[x, col] g[q, x] over the bins x that reach the column (the
-//   x contraction first, as `_bwd_kernel` does), then acc[row, col] += Wy[q, row] t
-//   over the rows of bin q in the tile. A zero g (the padded ROIs of the masked
-//   losses) adds nothing. Meanwhile each thread asks L2 for one line of the g
-//   that the tile needs of the ROI two ahead;
+//   bins x that reach each column (ORs into shared memory). Then the batch's
+//   stages are listed: a stage is one (ROI, bin q) with weight in the tile's rows,
+//   and holds the g of that ROI's bins (q, x) for the bins x that reach the tile,
+//   one contiguous run of memory;
+// - the stages are fed through a ring in shared memory: `group` stages to a slot
+//   group, three slot groups, copied with cp.async two groups ahead of use, one
+//   barrier per group;
+// - a column of the tile belongs to a group of C / V lanes, each lane holding V
+//   channels 4 at a time, so that a warp's shared-memory accesses are contiguous.
+//   For each stage, each of its ROI's columns in the tile: t = sum_x Wx[x, col] g[q, x]
+//   over the bins x that reach the column (the x contraction first, as
+//   `_bwd_kernel` does), then acc[row, col] += Wy[q, row] t over the rows of bin q
+//   in the tile. A zero g (the padded ROIs of the masked losses) adds nothing;
 // - after the last batch the tile is written once, in the feature dtype.
 //
-// Each accumulator word belongs to one lane, which adds into it in a fixed order:
-// no atomic adds, and dF is bitwise reproducible from run to run. No global
-// scratch, no memset, no second kernel. The plain version rounds its intermediate
-// to the feature dtype and this kernel does not, so the two agree within a
-// tolerance, not bit for bit.
+// Each accumulator word belongs to one lane, which adds into it in stage order: no
+// atomic adds, and dF is bitwise reproducible from run to run. No global scratch,
+// no memset, no second kernel. The plain version rounds its intermediate to the
+// feature dtype and this kernel does not, so the two agree within a tolerance, not
+// bit for bit.
 //
 // What bounds it: at the recipe's student shape (48 x 512 ROIs, 48 x 38x84x512
 // bf16) the function reads g (1.23 GB) and writes dF (0.16 GB): bytes, 0.415 ms.
-// A bin whose taps reach two tiles is read by both (about a quarter more of g,
-// mostly from L2), and each column of a tile reads its bins x again (L1/L2).
-// Measured on the card the kernel is bound by neither: its per-column loop is
-// latency bound (PERF.md, PR 5).
+// A bin whose taps reach two tiles is copied by both, mostly from L2 (PERF.md,
+// PR 5, has the measured times).
+//
+// K2_ABLATE (only for timing where the time goes; the result is wrong): 1 copies
+// no g into the ring, 2 adds nothing into the accumulator.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,8 +61,9 @@ namespace {
 constexpr int kMaxS = 4;             // samples per bin and axis
 constexpr int kMaxTaps = 2 * kMaxS;  // distinct rows (columns) one bin touches
 constexpr int kMaxBins = 32;         // p
+constexpr int kMaxBatch = 32;        // ROIs to a batch: a lane each when the stages are listed
 constexpr int kThreads = 512;
-constexpr int kAhead = 2;            // ROIs whose g is fetched into L2 ahead of use
+constexpr int kRing = 3;             // slot groups: two in flight while one is used
 constexpr int kMaxSmem = 232448;     // shared memory a block may opt in to
 
 struct BinTaps {
@@ -67,17 +72,17 @@ struct BinTaps {
   int count;
 };
 
-// four channels of g, read-only through the texture path; returns the OR of their
-// bits (0 only if all four are +0)
-__device__ __forceinline__ unsigned load4g(const float* p, float (&v)[4]) {
-  const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+// four channels of g from shared memory; returns the OR of their bits (0 only if
+// all four are +0)
+__device__ __forceinline__ unsigned load4(const float* p, float (&v)[4]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
   v[0] = __uint_as_float(x.x); v[1] = __uint_as_float(x.y);
   v[2] = __uint_as_float(x.z); v[3] = __uint_as_float(x.w);
   return x.x | x.y | x.z | x.w;
 }
 
-__device__ __forceinline__ unsigned load4g(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+__device__ __forceinline__ unsigned load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
   const float2 a = __bfloat1622float2(h[0]);
   const float2 b = __bfloat1622float2(h[1]);
@@ -96,6 +101,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
   o.x = *reinterpret_cast<uint32_t*>(&lo);
   o.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = o;
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float round_to(float x, int is_bf16) {
@@ -165,7 +182,7 @@ __device__ void bin_taps(float lo_in, float hi_in, float scale, int q, int p, in
 struct Params {
   int n, h, w, c, r, p, s;
   float scale;
-  int th, tw, tiles_y, tiles_x, batch;
+  int th, tw, tiles_y, tiles_x, batch, group;
 };
 
 // One ROI's footprint: the rows and columns the taps of its first and last bins
@@ -200,23 +217,32 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
                      T* __restrict__ out, Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int is_bf16 = sizeof(T) == 2;
-  const int p = a.p, c = a.c, th = a.th, tw = a.tw, batch = a.batch;
+  const int p = a.p, c = a.c, th = a.th, tw = a.tw, batch = a.batch, group = a.group;
   const int tile = blockIdx.x % (a.tiles_y * a.tiles_x);
   const int n = blockIdx.x / (a.tiles_y * a.tiles_x);
   const int y0 = (tile / a.tiles_x) * th, x0 = (tile % a.tiles_x) * tw;
   const int y1 = min(y0 + th, a.h) - 1, x1 = min(x0 + tw, a.w) - 1;   // the tile, inclusive
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
+  // shared memory, in the order of the wrapper's `bwd_smem`
   float* acc = reinterpret_cast<float*>(smem);                   // (th, tw, C) f32
   // the chunk's ROIs that meet the tile: (ROI, first column, last column, -)
   int4* rois = reinterpret_cast<int4*>(acc + (size_t)th * tw * c);  // (kThreads)
-  float* wyt = reinterpret_cast<float*>(rois + kThreads);         // (batch, p, th)
+  int4* stages = rois + kThreads;                                // (batch * p): ROI, q, x0, 16 B
+  float* wyt = reinterpret_cast<float*>(stages + batch * p);     // (batch, p, th)
   float* wxt = wyt + (size_t)batch * p * th;                     // (batch, p, tw)
   int* qspan = reinterpret_cast<int*>(wxt + (size_t)batch * p * tw);  // (batch, p, 2): tile rows
   unsigned* colmask = reinterpret_cast<unsigned*>(qspan + batch * 2 * p);  // (batch, tw): bins x
   unsigned* qbits = colmask + batch * tw;                        // (batch): bins q in the tile
   unsigned* xbits = qbits + batch;                               // (batch): bins x in the tile
-  int* wcount = reinterpret_cast<int*>(xbits + batch);           // (kThreads / 32)
+  int* wcount = reinterpret_cast<int*>(xbits + batch);           // (kThreads / 32 + 1)
+  const size_t ring_at = ((size_t)(wcount + kThreads / 32 + 1 - reinterpret_cast<int*>(smem)) * 4
+                          + 15) / 16 * 16;
+  T* ring = reinterpret_cast<T*>(smem + ring_at);                // (kRing * group, p, C)
+  const int slots = kRing * group, slot = p * c;
+  unsigned smem_size;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_size));
+  if (ring_at + (size_t)slots * slot * sizeof(T) > smem_size) __trap();  // the wrapper's layout
 
   for (int i = tid; i < th * tw * c / 4; i += kThreads) {
     store4(acc + (size_t)i * 4, make_float4(0.f, 0.f, 0.f, 0.f));
@@ -229,10 +255,6 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
   const int gi = tid / lanes, li = tid - gi * lanes;
   const T* gimg = g + (size_t)n * a.r * p * p * c;
   const float* bimg = boxes + (size_t)n * a.r * 4;
-  // this thread's 128-byte line of g to ask L2 for ahead of use: (bin q, bin x, line)
-  const int lines = (c * (int)sizeof(T) + 127) / 128;
-  const int pf_bin = tid / lines, pf_q = pf_bin / p, pf_x = pf_bin - pf_q * p;
-  const size_t pf_at = (size_t)pf_bin * c * sizeof(T) + (tid - pf_bin * lines) * 128;
 
   for (int base = 0; base < a.r; base += kThreads) {
     // the ROIs of this chunk whose footprint meets the tile, in order
@@ -292,33 +314,65 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
       }
       __syncthreads();
 
-      // compute: group gi owns the tile's columns x0 + gi, x0 + gi + groups, ...
-      for (int i = 0; i < nb; ++i) {
-        // ask L2 for the bins the tile needs of the ROI kAhead on (of the first
-        // kAhead + 1 at the start of a batch), a line a thread (bins past 512 lines
-        // are not asked for)
-        for (int j = i == 0 ? 0 : i + kAhead; j <= i + kAhead && j < nb; ++j) {
-          if (pf_q < p && (qbits[j] >> pf_q & 1u) && (xbits[j] >> pf_x & 1u)) {
-            const char* bins =
-                reinterpret_cast<const char*>(gimg + (size_t)rois[b0 + j].x * p * p * c);
-            asm volatile("prefetch.global.L2 [%0];" ::"l"(bins + pf_at));
+      // the stages, in order: (ROI i, bin q) for the bins q with weight in the
+      // tile's rows, with the run of g of the bins x that reach the tile
+      if (warp == 0) {
+        const unsigned qm = lane < nb && xbits[lane] ? qbits[lane] : 0u;
+        const int cnt = __popc(qm);
+        int incl = cnt;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, d);
+          if (lane >= d) incl += v;
+        }
+        if (qm) {
+          const unsigned xm = xbits[lane];
+          const int xlo = __ffs(xm) - 1, xhi = 31 - __clz(xm);
+          const int pieces = (xhi - xlo + 1) * c * (int)sizeof(T) / 16;
+          int k = incl - cnt;
+          for (unsigned m = qm; m; m &= m - 1) {
+            stages[k++] = make_int4(lane, __ffs(m) - 1, xlo, pieces);
           }
         }
+        if (lane == 31) wcount[kThreads / 32] = incl;
+      }
+      __syncthreads();
+      const int ns = wcount[kThreads / 32];
+      const int ng = (ns + group - 1) / group;
+
+      // copy the g of slot group k's stages into the ring
+      auto issue = [&](int k) {
+#if K2_ABLATE != 1
+        for (int st = k * group; st < min(ns, (k + 1) * group); ++st) {
+          const int4 e = stages[st];
+          const char* src = reinterpret_cast<const char*>(
+              gimg + (((size_t)rois[b0 + e.x].x * p + e.y) * p + e.z) * c);
+          char* dst = reinterpret_cast<char*>(ring + (size_t)(st % slots) * slot);
+          for (int u = tid; u < e.w; u += kThreads) copy16(dst + (size_t)u * 16, src + (size_t)u * 16);
+        }
+#endif
+        commit();
+      };
+      issue(0);
+      issue(1);
+      for (int k = 0; k < ng; ++k) {
+        wait_groups<kRing - 2>();   // group k has landed (this thread's copies)
+        __syncthreads();            // ... everyone's; and group k - 1 is done with
+        issue(k + 2);
         if (gi >= groups) continue;
-        const int4 roi_i = rois[b0 + i];
-        const float* wy = wyt + (size_t)i * p * th;
-        const float* wx = wxt + (size_t)i * p * tw - x0;
-        const int* span = qspan + i * p * 2;
-        const unsigned qmask = qbits[i];        // the bins q with a weight in the tile's rows
-        const T* gr = gimg + (size_t)roi_i.x * p * p * c + li * 4;
-        int col = x0 + gi;
-        while (col < roi_i.y) col += groups;
-        for (; col <= roi_i.z; col += groups) {
-          const unsigned xmask = colmask[i * tw + col - x0];  // the bins x with a weight here
-          if (xmask == 0) continue;
-          float* cell = acc + (size_t)(col - x0) * c + li * 4;
-          for (unsigned qm = qmask; qm; qm &= qm - 1) {
-            const int q = __ffs(qm) - 1;
+        for (int st = k * group; st < min(ns, (k + 1) * group); ++st) {
+          const int4 e = stages[st];
+          const int i = e.x, q = e.y;
+          const int4 roi_i = rois[b0 + i];
+          const float* wy = wyt + ((size_t)i * p + q) * th;
+          const float* wx = wxt + (size_t)i * p * tw - x0;
+          const int lo = qspan[(i * p + q) * 2], hi = qspan[(i * p + q) * 2 + 1];
+          const T* gs = ring + (size_t)(st % slots) * slot + li * 4;
+          int col = x0 + gi;
+          while (col < roi_i.y) col += groups;
+          for (; col <= roi_i.z; col += groups) {
+            const unsigned xmask = colmask[i * tw + col - x0];  // the bins x with a weight here
+            if (xmask == 0) continue;
             float t[V];
 #pragma unroll
             for (int v = 0; v < V; ++v) t[v] = 0.0f;
@@ -326,34 +380,38 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
             for (unsigned xm = xmask; xm; xm &= xm - 1) {
               const int x = __ffs(xm) - 1;
               const float wgt = wx[x * tw + col];
-              const T* src = gr + (size_t)(q * p + x) * c;
+              const T* src = gs + (size_t)(x - e.z) * c;
 #pragma unroll
-              for (int k = 0; k < V / 4; ++k) {
+              for (int k4 = 0; k4 < V / 4; ++k4) {
                 float gv[4];
-                nz |= load4g(src + k * lanes * 4, gv);
+                nz |= load4(src + k4 * lanes * 4, gv);
 #pragma unroll
-                for (int v = 0; v < 4; ++v) t[4 * k + v] = fmaf(wgt, gv[v], t[4 * k + v]);
+                for (int v = 0; v < 4; ++v) t[4 * k4 + v] = fmaf(wgt, gv[v], t[4 * k4 + v]);
               }
             }
+#if K2_ABLATE == 2
+            if (nz != 0xdeadbeefu) continue;
+#endif
             if (nz == 0) continue;
-            const int lo = span[2 * q], hi = span[2 * q + 1];
+            float* cell = acc + (size_t)(col - x0) * c + li * 4;
             for (int r = lo; r <= hi; ++r) {
-              const float wgt = wy[q * th + r];
+              const float wgt = wy[r];
               if (wgt == 0.0f) continue;
               float* dst = cell + (size_t)r * tw * c;
 #pragma unroll
-              for (int k = 0; k < V / 4; ++k) {
-                float4 o = *reinterpret_cast<float4*>(dst + k * lanes * 4);
-                o.x = fmaf(wgt, t[4 * k], o.x);
-                o.y = fmaf(wgt, t[4 * k + 1], o.y);
-                o.z = fmaf(wgt, t[4 * k + 2], o.z);
-                o.w = fmaf(wgt, t[4 * k + 3], o.w);
-                store4(dst + k * lanes * 4, o);
+              for (int k4 = 0; k4 < V / 4; ++k4) {
+                float4 o = *reinterpret_cast<float4*>(dst + k4 * lanes * 4);
+                o.x = fmaf(wgt, t[4 * k4], o.x);
+                o.y = fmaf(wgt, t[4 * k4 + 1], o.y);
+                o.z = fmaf(wgt, t[4 * k4 + 2], o.z);
+                o.w = fmaf(wgt, t[4 * k4 + 3], o.w);
+                store4(dst + k4 * lanes * 4, o);
               }
             }
           }
         }
       }
+      wait_groups<0>();
       __syncthreads();
     }
   }
@@ -369,15 +427,23 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
 }
 
 template <typename T, int V>
-int launch(const void* g, const void* boxes, void* out, const Params& a, size_t smem,
+int launch(const void* g, const void* boxes, void* out, const Params& a, int smem,
            cudaStream_t st) {
   auto* kernel = roi_align_bwd_kernel<T, V>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(a.n * a.tiles_y * a.tiles_x));
   kernel<<<grid, kThreads, smem, st>>>((const T*)g, (const float*)boxes, (T*)out, a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_v(int v, const void* g, const void* boxes, void* out, const Params& a, int smem,
+             cudaStream_t st) {
+  return v == 16 ? launch<T, 16>(g, boxes, out, a, smem, st)
+       : v == 8  ? launch<T, 8>(g, boxes, out, a, smem, st)
+                 : launch<T, 4>(g, boxes, out, a, smem, st);
 }
 
 }  // namespace
@@ -389,32 +455,27 @@ const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // g (N, R, p, p, C) in the feature dtype (0 = f32, 1 = bf16); boxes (N, R, 4) f32
 // XYXY in image coordinates; out (N, H, W, C) in the feature dtype, written once,
 // whole. The plan (the wrapper's `bwd_plan`): tiles of th x tw map cells with every
-// channel, tables for `batch` ROIs at a time (2 * p * batch <= 512), at most 512
-// lanes to a column (C / 16, or C / 4 where C is not a multiple of 16); shared memory
-// per block: 4 * (th*tw*C + 4*512 + batch*(p*(th + tw + 2) + tw + 2) + 16) bytes. C a multiple
+// channel, tables for `batch` ROIs at a time (2 * p * batch <= 512, batch <= 32),
+// C / v lanes to a column (v of 4, 8, 16 dividing C, at most 512 lanes), `group`
+// stages to a slot group of the ring, `smem` bytes of shared memory a block as
+// `bwd_smem` lays it out (the kernel traps if its layout does not fit). C a multiple
 // of 4, every pointer 16-byte aligned (the wrapper checks). Launches on `stream`;
 // returns cudaGetLastError().
 int pt_roi_align_bwd(const void* g, const void* boxes, void* out, int n, int h, int w, int c,
                      int r, int p, int s, float scale, int dtype, int th, int tw, int batch,
-                     void* stream) {
+                     int v, int group, int smem, void* stream) {
   if ((dtype != 0 && dtype != 1) || p < 1 || p > kMaxBins || s > kMaxS || s < 1 || c % 4 ||
-      th < 1 || tw < 1 || batch < 1 || 2 * p * batch > kThreads ||
-      (c % 16 == 0 ? c / 16 : c / 4) > kThreads) {
+      th < 1 || tw < 1 || batch < 1 || batch > kMaxBatch || 2 * p * batch > kThreads ||
+      (v != 4 && v != 8 && v != 16) || c % v || c / v > kThreads || group < 1 ||
+      smem < 1 || smem > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = 4 * ((size_t)th * tw * c + 4 * kThreads +
-                           (size_t)batch * (p * (th + tw + 2) + tw + 2) + kThreads / 32);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (n * h * w == 0 || c == 0) return 0;
-  const Params a{n, h, w, c, r, p, s, scale, th, tw, (h + th - 1) / th, (w + tw - 1) / tw, batch};
+  const Params a{n, h, w, c, r, p, s, scale, th, tw, (h + th - 1) / th, (w + tw - 1) / tw,
+                 batch, group};
   cudaStream_t st = (cudaStream_t)stream;
-  // 16 channels a lane where C allows, else 4
-  if (c % 16 == 0) {
-    return dtype == 0 ? launch<float, 16>(g, boxes, out, a, smem, st)
-                      : launch<__nv_bfloat16, 16>(g, boxes, out, a, smem, st);
-  }
-  return dtype == 0 ? launch<float, 4>(g, boxes, out, a, smem, st)
-                    : launch<__nv_bfloat16, 4>(g, boxes, out, a, smem, st);
+  return dtype == 0 ? launch_v<float>(v, g, boxes, out, a, smem, st)
+                    : launch_v<__nv_bfloat16>(v, g, boxes, out, a, smem, st);
 }
 
 }  // extern "C"
