@@ -27,9 +27,11 @@
 //   stages are listed: a stage is one (ROI, bin q) with weight in the tile's rows,
 //   and holds the g of that ROI's bins (q, x) for the bins x that reach the tile,
 //   one contiguous run of memory;
-// - the stages are fed through a ring in shared memory: `group` stages to a slot
-//   group, three slot groups, copied with cp.async two groups ahead of use, one
-//   barrier per group;
+// - a producer warp feeds the stages through a ring of `slots` slots in shared
+//   memory: one bulk copy (TMA, cp.async.bulk) a stage, as soon as every
+//   consumer warp is done with the stage that held the slot (an mbarrier a slot
+//   each way), so that the 16 consumer warps go through the stages each at its
+//   own pace, up to a ring apart;
 // - a column of the tile belongs to a group of C / V lanes, each lane holding V
 //   channels 4 at a time, so that a warp's shared-memory accesses are contiguous.
 //   For each stage, each of its ROI's columns in the tile: t = sum_x Wx[x, col] g[q, x]
@@ -51,6 +53,9 @@
 //
 // K2_ABLATE (only for timing where the time goes; the result is wrong): 1 copies
 // no g into the ring, 2 adds nothing into the accumulator.
+//
+// A wait on an mbarrier that lasts over 2^34 cycles (about 10 s) traps instead of
+// hanging the card.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,8 +67,8 @@ constexpr int kMaxS = 4;             // samples per bin and axis
 constexpr int kMaxTaps = 2 * kMaxS;  // distinct rows (columns) one bin touches
 constexpr int kMaxBins = 32;         // p
 constexpr int kMaxBatch = 32;        // ROIs to a batch: a lane each when the stages are listed
-constexpr int kThreads = 512;
-constexpr int kRing = 3;             // slot groups: two in flight while one is used
+constexpr int kThreads = 512;        // consumer threads; a producer warp comes on top
+constexpr int kBlock = kThreads + 32;
 constexpr int kMaxSmem = 232448;     // shared memory a block may opt in to
 
 struct BinTaps {
@@ -103,16 +108,46 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
   *reinterpret_cast<uint2*>(p) = o;
 }
 
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
 
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the phase of `bar` that has `parity` is complete
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  unsigned ok = 0;
+  while (true) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(ok)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// copy `bytes` (a multiple of 16) from global to shared memory; `bar` completes
+// when they have landed
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ float round_to(float x, int is_bf16) {
@@ -182,7 +217,7 @@ __device__ void bin_taps(float lo_in, float hi_in, float scale, int q, int p, in
 struct Params {
   int n, h, w, c, r, p, s;
   float scale;
-  int th, tw, tiles_y, tiles_x, batch, group;
+  int th, tw, tiles_y, tiles_x, batch, slots;
 };
 
 // One ROI's footprint: the rows and columns the taps of its first and last bins
@@ -212,12 +247,12 @@ __device__ void footprint(const float* b, float scale, int p, int s, int h, int 
 }
 
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlock, 1)
 roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
                      T* __restrict__ out, Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int is_bf16 = sizeof(T) == 2;
-  const int p = a.p, c = a.c, th = a.th, tw = a.tw, batch = a.batch, group = a.group;
+  const int p = a.p, c = a.c, th = a.th, tw = a.tw, batch = a.batch, slots = a.slots;
   const int tile = blockIdx.x % (a.tiles_y * a.tiles_x);
   const int n = blockIdx.x / (a.tiles_y * a.tiles_x);
   const int y0 = (tile / a.tiles_x) * th, x0 = (tile % a.tiles_x) * tw;
@@ -236,15 +271,25 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
   unsigned* qbits = colmask + batch * tw;                        // (batch): bins q in the tile
   unsigned* xbits = qbits + batch;                               // (batch): bins x in the tile
   int* wcount = reinterpret_cast<int*>(xbits + batch);           // (kThreads / 32 + 1)
-  const size_t ring_at = ((size_t)(wcount + kThreads / 32 + 1 - reinterpret_cast<int*>(smem)) * 4
+  // then, 16-byte aligned, a full and an empty mbarrier a slot, and the ring
+  const size_t bars_at = ((size_t)(wcount + kThreads / 32 + 1 - reinterpret_cast<int*>(smem)) * 4
                           + 15) / 16 * 16;
-  T* ring = reinterpret_cast<T*>(smem + ring_at);                // (kRing * group, p, C)
-  const int slots = kRing * group, slot = p * c;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bars_at);   // (slots): its g has landed
+  uint64_t* empty = full + slots;                                 // (slots): every warp is done
+  T* ring = reinterpret_cast<T*>(empty + slots);                  // (slots, p, C)
+  const int slot = p * c;
   unsigned smem_size;
   asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_size));
-  if (ring_at + (size_t)slots * slot * sizeof(T) > smem_size) __trap();  // the wrapper's layout
+  if (bars_at + (size_t)slots * (16 + slot * sizeof(T)) > smem_size) __trap();  // the wrapper's
+  if (tid == 0) {
+    for (int k = 0; k < slots; ++k) {
+      bar_init(full + k, 1);
+      bar_init(empty + k, kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
 
-  for (int i = tid; i < th * tw * c / 4; i += kThreads) {
+  for (int i = tid; i < th * tw * c / 4; i += kBlock) {
     store4(acc + (size_t)i * 4, make_float4(0.f, 0.f, 0.f, 0.f));
   }
 
@@ -252,18 +297,19 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
   // that a warp's loads and stores of one 4-channel step are contiguous
   const int lanes = c / V;
   const int groups = kThreads / lanes;
-  const int gi = tid / lanes, li = tid - gi * lanes;
+  const int gi = tid / lanes, li = tid - gi * lanes;   // the producer warp: gi >= groups
   const T* gimg = g + (size_t)n * a.r * p * p * c;
   const float* bimg = boxes + (size_t)n * a.r * 4;
 
+  int fed = 0;   // stages through the ring so far
   for (int base = 0; base < a.r; base += kThreads) {
     // the ROIs of this chunk whose footprint meets the tile, in order
     const int roi = base + tid;
     int fp[4] = {1, 0, 1, 0};
-    if (roi < a.r) footprint(bimg + (size_t)roi * 4, a.scale, p, a.s, a.h, a.w, is_bf16, fp);
-    const bool meets = roi < a.r && fp[0] <= y1 && fp[1] >= y0 && fp[2] <= x1 && fp[3] >= x0;
+    if (roi < a.r && tid < kThreads) footprint(bimg + (size_t)roi * 4, a.scale, p, a.s, a.h, a.w, is_bf16, fp);
+    const bool meets = roi < a.r && tid < kThreads && fp[0] <= y1 && fp[1] >= y0 && fp[2] <= x1 && fp[3] >= x0;
     const unsigned vote = __ballot_sync(0xffffffffu, meets);
-    if (lane == 0) wcount[warp] = __popc(vote);
+    if (lane == 0 && tid < kThreads) wcount[warp] = __popc(vote);
     __syncthreads();
     int at = 0, total = 0;
     for (int v = 0; v < kThreads / 32; ++v) {
@@ -282,7 +328,7 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
       // tile's rows or Wx over its columns, whether the bin has a weight there, the
       // tile rows it has weights on (Wy), and its bit in the masks of the columns
       // it has weights on (Wx)
-      for (int k = tid; k < batch * (tw + 2); k += kThreads) colmask[k] = 0;  // and the bits
+      for (int k = tid; k < batch * (tw + 2); k += kBlock) colmask[k] = 0;  // and the bits
       __syncthreads();
       if (tid < nb * 2 * p) {
         const int i = tid / (2 * p), axis = (tid / p) % 2, q = tid % p;
@@ -338,87 +384,90 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
       }
       __syncthreads();
       const int ns = wcount[kThreads / 32];
-      const int ng = (ns + group - 1) / group;
 
-      // copy the g of slot group k's stages into the ring
-      auto issue = [&](int k) {
-#if K2_ABLATE != 1
-        for (int st = k * group; st < min(ns, (k + 1) * group); ++st) {
-          const int4 e = stages[st];
-          const char* src = reinterpret_cast<const char*>(
-              gimg + (((size_t)rois[b0 + e.x].x * p + e.y) * p + e.z) * c);
-          char* dst = reinterpret_cast<char*>(ring + (size_t)(st % slots) * slot);
-          for (int u = tid; u < e.w; u += kThreads) copy16(dst + (size_t)u * 16, src + (size_t)u * 16);
+      if (tid >= kThreads) {
+        // the producer: each stage into its slot once every warp is done with the
+        // slot's last stage
+        if (lane == 0) {
+          for (int st = 0; st < ns; ++st) {
+            const int u = fed + st, k = u % slots;
+            bar_wait(empty + k, ((u / slots) & 1) ^ 1);
+            const int4 e = stages[st];
+#if K2_ABLATE == 1
+            bar_arrive(full + k);
+#else
+            bulk_copy(ring + (size_t)k * slot,
+                      gimg + (((size_t)rois[b0 + e.x].x * p + e.y) * p + e.z) * c,
+                      (unsigned)e.w * 16, full + k);
+#endif
+          }
         }
-#endif
-        commit();
-      };
-      issue(0);
-      issue(1);
-      for (int k = 0; k < ng; ++k) {
-        wait_groups<kRing - 2>();   // group k has landed (this thread's copies)
-        __syncthreads();            // ... everyone's; and group k - 1 is done with
-        issue(k + 2);
-        if (gi >= groups) continue;
-        for (int st = k * group; st < min(ns, (k + 1) * group); ++st) {
-          const int4 e = stages[st];
-          const int i = e.x, q = e.y;
-          const int4 roi_i = rois[b0 + i];
-          const float* wy = wyt + ((size_t)i * p + q) * th;
-          const float* wx = wxt + (size_t)i * p * tw - x0;
-          const int lo = qspan[(i * p + q) * 2], hi = qspan[(i * p + q) * 2 + 1];
-          const T* gs = ring + (size_t)(st % slots) * slot + li * 4;
-          int col = x0 + gi;
-          while (col < roi_i.y) col += groups;
-          for (; col <= roi_i.z; col += groups) {
-            const unsigned xmask = colmask[i * tw + col - x0];  // the bins x with a weight here
-            if (xmask == 0) continue;
-            float t[V];
+      } else {
+        for (int st = 0; st < ns; ++st) {
+          const int u = fed + st, k = u % slots;
+          bar_wait(full + k, (u / slots) & 1);
+          if (gi < groups) {
+            const int4 e = stages[st];
+            const int i = e.x, q = e.y;
+            const int4 roi_i = rois[b0 + i];
+            const float* wy = wyt + ((size_t)i * p + q) * th;
+            const float* wx = wxt + (size_t)i * p * tw - x0;
+            const int lo = qspan[(i * p + q) * 2], hi = qspan[(i * p + q) * 2 + 1];
+            const T* gs = ring + (size_t)k * slot + li * 4;
+            int col = x0 + gi;
+            while (col < roi_i.y) col += groups;
+            for (; col <= roi_i.z; col += groups) {
+              const unsigned xmask = colmask[i * tw + col - x0];  // the bins x with a weight here
+              if (xmask == 0) continue;
+              float t[V];
 #pragma unroll
-            for (int v = 0; v < V; ++v) t[v] = 0.0f;
-            unsigned nz = 0;
-            for (unsigned xm = xmask; xm; xm &= xm - 1) {
-              const int x = __ffs(xm) - 1;
-              const float wgt = wx[x * tw + col];
-              const T* src = gs + (size_t)(x - e.z) * c;
+              for (int v = 0; v < V; ++v) t[v] = 0.0f;
+              unsigned nz = 0;
+              for (unsigned xm = xmask; xm; xm &= xm - 1) {
+                const int x = __ffs(xm) - 1;
+                const float wgt = wx[x * tw + col];
+                const T* src = gs + (size_t)(x - e.z) * c;
 #pragma unroll
-              for (int k4 = 0; k4 < V / 4; ++k4) {
-                float gv[4];
-                nz |= load4(src + k4 * lanes * 4, gv);
+                for (int k4 = 0; k4 < V / 4; ++k4) {
+                  float gv[4];
+                  nz |= load4(src + k4 * lanes * 4, gv);
 #pragma unroll
-                for (int v = 0; v < 4; ++v) t[4 * k4 + v] = fmaf(wgt, gv[v], t[4 * k4 + v]);
+                  for (int v = 0; v < 4; ++v) t[4 * k4 + v] = fmaf(wgt, gv[v], t[4 * k4 + v]);
+                }
               }
-            }
 #if K2_ABLATE == 2
-            if (nz != 0xdeadbeefu) continue;
+              if (nz != 0xdeadbeefu) continue;
 #endif
-            if (nz == 0) continue;
-            float* cell = acc + (size_t)(col - x0) * c + li * 4;
-            for (int r = lo; r <= hi; ++r) {
-              const float wgt = wy[r];
-              if (wgt == 0.0f) continue;
-              float* dst = cell + (size_t)r * tw * c;
+              if (nz == 0) continue;
+              float* cell = acc + (size_t)(col - x0) * c + li * 4;
+              for (int r = lo; r <= hi; ++r) {
+                const float wgt = wy[r];
+                if (wgt == 0.0f) continue;
+                float* dst = cell + (size_t)r * tw * c;
 #pragma unroll
-              for (int k4 = 0; k4 < V / 4; ++k4) {
-                float4 o = *reinterpret_cast<float4*>(dst + k4 * lanes * 4);
-                o.x = fmaf(wgt, t[4 * k4], o.x);
-                o.y = fmaf(wgt, t[4 * k4 + 1], o.y);
-                o.z = fmaf(wgt, t[4 * k4 + 2], o.z);
-                o.w = fmaf(wgt, t[4 * k4 + 3], o.w);
-                store4(dst + k4 * lanes * 4, o);
+                for (int k4 = 0; k4 < V / 4; ++k4) {
+                  float4 o = *reinterpret_cast<float4*>(dst + k4 * lanes * 4);
+                  o.x = fmaf(wgt, t[4 * k4], o.x);
+                  o.y = fmaf(wgt, t[4 * k4 + 1], o.y);
+                  o.z = fmaf(wgt, t[4 * k4 + 2], o.z);
+                  o.w = fmaf(wgt, t[4 * k4 + 3], o.w);
+                  store4(dst + k4 * lanes * 4, o);
+                }
               }
             }
           }
+          __syncwarp();
+          if (lane == 0) bar_arrive(empty + k);
         }
       }
-      wait_groups<0>();
+      fed += ns;
       __syncthreads();
     }
   }
 
   // the tile, once, in the feature dtype
   const int rows = y1 - y0 + 1, cols = x1 - x0 + 1, cgs = c / 4;
-  for (int i = tid; i < rows * cols * cgs; i += kThreads) {
+  for (int i = tid; i < rows * cols * cgs; i += kBlock) {
     const int cell = i / cgs, ch = (i - cell * cgs) * 4;
     const int ry = cell / cols, rx = cell - ry * cols;
     const float4 v = *reinterpret_cast<const float4*>(acc + ((size_t)ry * tw + rx) * c + ch);
@@ -434,7 +483,7 @@ int launch(const void* g, const void* boxes, void* out, const Params& a, int sme
                                          smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(a.n * a.tiles_y * a.tiles_x));
-  kernel<<<grid, kThreads, smem, st>>>((const T*)g, (const float*)boxes, (T*)out, a);
+  kernel<<<grid, kBlock, smem, st>>>((const T*)g, (const float*)boxes, (T*)out, a);
   return (int)cudaGetLastError();
 }
 
@@ -456,23 +505,23 @@ const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // XYXY in image coordinates; out (N, H, W, C) in the feature dtype, written once,
 // whole. The plan (the wrapper's `bwd_plan`): tiles of th x tw map cells with every
 // channel, tables for `batch` ROIs at a time (2 * p * batch <= 512, batch <= 32),
-// C / v lanes to a column (v of 4, 8, 16 dividing C, at most 512 lanes), `group`
-// stages to a slot group of the ring, `smem` bytes of shared memory a block as
+// C / v lanes to a column (v of 4, 8, 16 dividing C, at most 512 lanes), `slots`
+// slots in the ring (2 to 64), `smem` bytes of shared memory a block as
 // `bwd_smem` lays it out (the kernel traps if its layout does not fit). C a multiple
 // of 4, every pointer 16-byte aligned (the wrapper checks). Launches on `stream`;
 // returns cudaGetLastError().
 int pt_roi_align_bwd(const void* g, const void* boxes, void* out, int n, int h, int w, int c,
                      int r, int p, int s, float scale, int dtype, int th, int tw, int batch,
-                     int v, int group, int smem, void* stream) {
+                     int v, int slots, int smem, void* stream) {
   if ((dtype != 0 && dtype != 1) || p < 1 || p > kMaxBins || s > kMaxS || s < 1 || c % 4 ||
       th < 1 || tw < 1 || batch < 1 || batch > kMaxBatch || 2 * p * batch > kThreads ||
-      (v != 4 && v != 8 && v != 16) || c % v || c / v > kThreads || group < 1 ||
+      (v != 4 && v != 8 && v != 16) || c % v || c / v > kThreads || slots < 2 || slots > 64 ||
       smem < 1 || smem > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
   if (n * h * w == 0 || c == 0) return 0;
   const Params a{n, h, w, c, r, p, s, scale, th, tw, (h + th - 1) / th, (w + tw - 1) / tw,
-                 batch, group};
+                 batch, slots};
   cudaStream_t st = (cudaStream_t)stream;
   return dtype == 0 ? launch_v<float>(v, g, boxes, out, a, smem, st)
                     : launch_v<__nv_bfloat16>(v, g, boxes, out, a, smem, st);

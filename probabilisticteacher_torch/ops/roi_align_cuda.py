@@ -33,42 +33,40 @@ BWD_KERNEL = CudaKernel(
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the backward kernel's limits (csrc/roi_align_bwd.cu checks them too): the shared
-# memory one block may opt in to on sm_90, its threads, p, ROIs to a batch and the
-# slot groups of its ring
+# memory one block may opt in to on sm_90, its consumer threads and p
 BWD_SMEM_BYTES = 232448
 BWD_THREADS = 512
 BWD_MAX_BINS = 32
-BWD_RING = 3
-# g bytes one slot group of the ring holds at most: 4 stages of 7 bins of 512 bf16
-# channels
-BWD_GROUP_BYTES = 28672
+# g bytes the ring holds at most: 12 stages of 7 bins of 512 bf16 channels
+BWD_RING_BYTES = 86016
 
 
 class BwdPlan(NamedTuple):
     """How the backward kernel tiles dF: tiles of ``th`` x ``tw`` map cells with
     every channel, ``tiles_y`` x ``tiles_x`` of them per image; tables for ``batch``
-    ROIs at a time; C / ``v`` lanes to a column; ``group`` stages to a slot group of
-    the ring; ``smem`` bytes of shared memory a block (:func:`bwd_smem`)."""
+    ROIs at a time; C / ``v`` lanes to a column; ``slots`` stages in the ring;
+    ``smem`` bytes of shared memory a block (:func:`bwd_smem`)."""
     th: int
     tw: int
     tiles_y: int
     tiles_x: int
     batch: int
     v: int
-    group: int
+    slots: int
     smem: int
 
 
-def bwd_smem(th: int, tw: int, c: int, p: int, batch: int, group: int, esize: int) -> int:
+def bwd_smem(th: int, tw: int, c: int, p: int, batch: int, slots: int, esize: int) -> int:
     """Shared memory of one block, in the order the kernel lays it out: the f32
     accumulator (th, tw, C); the block's list of ROIs (512 int4) and of a batch's
     stages (batch * p int4); the batch's tables (Wy, Wx, the rows of each bin q,
     the column masks, the bin masks) and the warps' counts; then, 16-byte aligned,
-    the ring: 3 slot groups of ``group`` slots of p x C elements of ``esize`` bytes.
+    two mbarriers a slot and the ring: ``slots`` slots of p x C elements of
+    ``esize`` bytes.
     The kernel takes the total and traps if its layout does not fit."""
     head = (4 * th * tw * c + 16 * BWD_THREADS + 16 * batch * p
             + 4 * (batch * (p * (th + tw + 2) + tw + 2) + BWD_THREADS // 32 + 1))
-    return -(-head // 16) * 16 + BWD_RING * group * p * c * esize
+    return -(-head // 16) * 16 + slots * (16 + p * c * esize)
 
 
 @functools.lru_cache(maxsize=64)
@@ -76,9 +74,9 @@ def bwd_plan(h: int, w: int, c: int, p: int, esize: int) -> BwdPlan:
     """The tiling of ``csrc/roi_align_bwd.cu`` for an (H, W, C) map, p x p bins and
     features of ``esize`` bytes.
 
-    Tables for as many ROIs as 512 threads serve (2 p a ROI), 32 at most. A slot
-    group holds as many stages (a ROI's bin row, p x C elements) as fit
-    ``BWD_GROUP_BYTES``, 1 to 8. A column of a tile goes to C / v lanes, so a block
+    Tables for as many ROIs as 512 threads serve (2 p a ROI), 32 at most. The
+    ring holds as many stages (a ROI's bin row, p x C elements) as fit
+    ``BWD_RING_BYTES``, 4 to 64. A column of a tile goes to C / v lanes, so a block
     of 512 threads works on 512 v / C columns at once. For each v and band height, the widest tile that fits the shared memory, evened out over the
     map. The plan taken minimises the tile visits of a ROI about p cells across,
     (th + p)(tw + p) / (th tw), over the share of the column groups that have a
@@ -88,7 +86,7 @@ def bwd_plan(h: int, w: int, c: int, p: int, esize: int) -> BwdPlan:
     if p > BWD_MAX_BINS:
         raise ValueError(f"roi_align_backward: output_size {p} is beyond the kernel's "
                          f"{BWD_MAX_BINS} bins")
-    group = max(1, min(8, BWD_GROUP_BYTES // (p * c * esize)))
+    slots = max(4, min(64, BWD_RING_BYTES // (p * c * esize)))
     batch = min(32, BWD_THREADS // (2 * p))
     best = None
     for v in (16, 8, 4):
@@ -98,10 +96,10 @@ def bwd_plan(h: int, w: int, c: int, p: int, esize: int) -> BwdPlan:
         groups = BWD_THREADS // lanes
         for th in range(1, h + 1):
             def fits(tw):
-                return bwd_smem(th, tw, c, p, batch, group, esize) <= BWD_SMEM_BYTES
+                return bwd_smem(th, tw, c, p, batch, slots, esize) <= BWD_SMEM_BYTES
             # the smem grows by 4 (th C + batch (p + 1)) bytes a column, give or take
             # the 16-byte rounding
-            tw = (BWD_SMEM_BYTES - bwd_smem(th, 0, c, p, batch, group, esize)) // (
+            tw = (BWD_SMEM_BYTES - bwd_smem(th, 0, c, p, batch, slots, esize)) // (
                 4 * (th * c + batch * (p + 1)))
             tw = min(w, tw + 1)
             while tw >= 1 and not fits(tw):
@@ -113,8 +111,8 @@ def bwd_plan(h: int, w: int, c: int, p: int, esize: int) -> BwdPlan:
             used = tw_e / (-(-tw_e // groups) * groups)
             key = ((th_e + p) * (tw_e + p) / (th_e * tw_e) / used, ny * nx)
             if best is None or key < best[0]:
-                best = (key, BwdPlan(th_e, tw_e, ny, nx, batch, v, group,
-                                     bwd_smem(th_e, tw_e, c, p, batch, group, esize)))
+                best = (key, BwdPlan(th_e, tw_e, ny, nx, batch, v, slots,
+                                     bwd_smem(th_e, tw_e, c, p, batch, slots, esize)))
     if best is None:
         raise ValueError(f"roi_align_backward: {c} channels do not fit the kernel: a "
                          f"column needs more than {BWD_THREADS} lanes, or one map cell "
@@ -196,7 +194,7 @@ def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor, feat_shape, dtyp
         return out
     BWD_KERNEL.launch(grad.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, h, w, c, r, p, s,
                       float(spatial_scale), _DTYPES[dtype], plan.th, plan.tw, plan.batch,
-                      plan.v, plan.group, plan.smem,
+                      plan.v, plan.slots, plan.smem,
                       torch.cuda.current_stream(grad.device).cuda_stream)
     return out
 

@@ -59,12 +59,12 @@ def test_bwd_plan_tiles_the_cases(name):
         assert (plan.tiles_y - 1) * plan.th < h <= plan.tiles_y * plan.th
         assert (plan.tiles_x - 1) * plan.tw < w <= plan.tiles_x * plan.tw
         assert plan.smem == roi_align_cuda.bwd_smem(plan.th, plan.tw, c, 7, plan.batch,
-                                                     plan.group, esize)
+                                                     plan.slots, esize)
         assert plan.smem <= roi_align_cuda.BWD_SMEM_BYTES
         assert 2 * 7 * plan.batch <= roi_align_cuda.BWD_THREADS and plan.batch <= 32
         assert c % plan.v == 0 and c // plan.v <= roi_align_cuda.BWD_THREADS
     plan = roi_align_cuda.bwd_plan(h, w, c, 7, 2)
-    tiles = {"c512": (6, 11), "c64": (2, 3), "whole": (2, 3), "c16": (2, 1), "wide": (1, 12)}
+    tiles = {"c512": (6, 11), "c64": (3, 3), "whole": (3, 3), "c16": (3, 1), "wide": (1, 13)}
     assert (plan.tiles_y, plan.tiles_x) == tiles.get(name, (1, 1))
     if name == "c512":
         assert h % plan.th != 0
@@ -72,10 +72,10 @@ def test_bwd_plan_tiles_the_cases(name):
 
 def test_bwd_plan_at_the_recipe_shape_and_its_limit():
     """The student's 38 x 84 x 512 map in bf16: 66 tiles of 7 x 8 cells with all
-    512 channels, 2 warps to a column, 4 stages to a slot group; too many channels
+    512 channels, 2 warps to a column, 12 stages in the ring; too many channels
     raise."""
     plan = roi_align_cuda.bwd_plan(38, 84, 512, 7, 2)
-    assert (plan.th, plan.tw, plan.tiles_y, plan.tiles_x, plan.batch, plan.v, plan.group) == (
-        7, 8, 6, 11, 32, 8, 4)
+    assert (plan.th, plan.tw, plan.tiles_y, plan.tiles_x, plan.batch, plan.v, plan.slots) == (
+        7, 8, 6, 11, 32, 8, 12)
     with pytest.raises(ValueError, match="lanes"):
         roi_align_cuda.bwd_plan(4, 4, 60000, 7, 2)
