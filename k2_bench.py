@@ -12,9 +12,9 @@ student pass's 48 x 512 and burn-in's 32 x 512 ROIs on 38 x 84 x 512 maps, bf16,
   ``roi_align_cuda.roi_align_backward``. Each turn is a process of its own that
   builds that checkout's kernel; the turns go DIR ..., this checkout twice, then
   DIR ... backwards, so that a drift of the card falls on both sides.
-- ``--ablate``: time this checkout's kernel built with ``-DK2_ABLATE=1`` (no g
-  copied into the ring) and ``-DK2_ABLATE=2`` (no accumulator adds) beside the
-  full kernel, in one process: where the time goes. Those results are wrong.
+- ``--ablate``: time this checkout's kernel built with ``-DK2_ABLATE=1`` (no
+  loads of g) and ``-DK2_ABLATE=2`` (no accumulator adds) beside the full
+  kernel, in one process: where the time goes. Those results are wrong.
 
 Prints one JSON line per time, then the card's name and power limit.
 """
@@ -88,14 +88,14 @@ def ablate() -> None:
     smoke = _smoke()
     full = roi_align_cuda.BWD_KERNEL
     variants = {"full": full}
-    for k, what in ((1, "no_g_copies"), (2, "no_adds")):
+    for k, what in ((1, "no_g_loads"), (2, "no_adds")):
         variants[what] = CudaKernel(full.source, full.symbol, full.argtypes,
                                     (f"-DK2_ABLATE={k}",))
     _build.build(list(variants.values()))
     dev = torch.device("cuda")
     for label, n, r in smoke.BWD_CASES:
         g, boxes, shape = _inputs(smoke, dev, n, r)
-        for what in ("full", "no_g_copies", "no_adds", "full"):
+        for what in ("full", "no_g_loads", "no_adds", "full"):
             roi_align_cuda.BWD_KERNEL = variants[what]
             ms = smoke.cuda_ms(lambda: roi_align_cuda.roi_align_backward(
                 g, boxes, shape, torch.bfloat16, 1.0 / 16, 7, 2), reps=10)

@@ -13,9 +13,10 @@
 // Owner computes, as the TPU kernel does: `_bwd_kernel` holds the f32 accumulator
 // of one image's w-chunk, all rows and channels, in VMEM and streams the image's
 // ROIs through it. A block here owns one tile of one image's dF, th x tw map cells
-// with every channel, as an f32 accumulator in shared memory; the wrapper's
-// `bwd_plan` sizes the tiles and lays out the shared memory (`bwd_smem`). The
-// block walks its image's ROIs in order:
+// with every channel, as an f32 accumulator in shared memory (7 x 14 cells x 512
+// channels, 196 KB, on the recipe's 38 x 84 x 512 map; the wrapper's `bwd_plan`
+// sizes the tiles and `bwd_smem` lays out the shared memory). It walks its image's
+// ROIs in order:
 //
 // - the ROIs come in chunks of 512, a thread each: a ROI whose footprint (the taps
 //   of its first and last bins; the bins are monotone) misses the tile is
@@ -23,39 +24,35 @@
 // - the listed ROIs go in batches of up to 32. One thread per (ROI, axis, bin)
 //   writes its bin's row of Wy over the tile's rows, or of Wx over its columns,
 //   and sets its bit in the masks of the bins with weight in the tile and of the
-//   bins x that reach each column (ORs into shared memory). Then the batch's
-//   stages are listed: a stage is one (ROI, bin q) with weight in the tile's rows,
-//   and holds the g of that ROI's bins (q, x) for the bins x that reach the tile,
-//   one contiguous run of memory;
-// - a producer warp feeds the stages through a ring of `slots` slots in shared
-//   memory: one bulk copy (TMA, cp.async.bulk) a stage, as soon as every
-//   consumer warp is done with the stage that held the slot (an mbarrier a slot
-//   each way), so that the 16 consumer warps go through the stages each at its
-//   own pace, up to a ring apart;
-// - a column of the tile belongs to a group of C / V lanes, each lane holding V
-//   channels 4 at a time, so that a warp's shared-memory accesses are contiguous.
-//   For each stage, each of its ROI's columns in the tile: t = sum_x Wx[x, col] g[q, x]
-//   over the bins x that reach the column (the x contraction first, as
-//   `_bwd_kernel` does), then acc[row, col] += Wy[q, row] t over the rows of bin q
-//   in the tile. A zero g (the padded ROIs of the masked losses) adds nothing;
+//   bins x that reach each column (ORs into shared memory); then a barrier;
+// - a column of the tile belongs to a group of C/16 lanes (a warp at C = 512),
+//   each lane holding 16 channels 4 at a time, so that a warp's loads and shared
+//   memory accesses are contiguous and its control flow uniform. For each ROI of
+//   the batch, each of its columns in the tile and each bin q with weight in the
+//   tile: t = sum_x Wx[x, col] g[q, x] over the bins x that reach the column (the
+//   x contraction first, as `_bwd_kernel` does), then acc[row, col] += Wy[q, row] t
+//   over the rows of bin q in the tile. A zero g (the padded ROIs of the masked
+//   losses) adds nothing. Meanwhile each thread asks L2 for one line of the g
+//   that the tile needs of the ROI two ahead;
 // - after the last batch the tile is written once, in the feature dtype.
 //
-// Each accumulator word belongs to one lane, which adds into it in stage order: no
-// atomic adds, and dF is bitwise reproducible from run to run. No global scratch,
-// no memset, no second kernel. The plain version rounds its intermediate to the
-// feature dtype and this kernel does not, so the two agree within a tolerance, not
-// bit for bit.
+// Each accumulator word belongs to one lane, which adds into it in a fixed order:
+// no atomic adds, and dF is bitwise reproducible from run to run. No global
+// scratch, no memset, no second kernel. The plain version rounds its intermediate
+// to the feature dtype and this kernel does not, so the two agree within a
+// tolerance, not bit for bit.
 //
 // What bounds it: at the recipe's student shape (48 x 512 ROIs, 48 x 38x84x512
 // bf16) the function reads g (1.23 GB) and writes dF (0.16 GB): bytes, 0.415 ms.
-// A bin whose taps reach two tiles is copied by both, mostly from L2 (PERF.md,
-// PR 5, has the measured times).
+// A bin whose taps reach two tiles is read by both (about a quarter more of g,
+// mostly from L2), and each column of a tile reads its bins x again (L1/L2).
+// Measured on the card the kernel is bound by neither (PERF.md, PR 5). The tile
+// leaves no room for a ring of g in shared memory; two designs with smaller tiles
+// and such a ring (cp.async with a barrier per slot group; bulk copies from a
+// producer warp with an mbarrier per slot) measured slower (PERF.md, PR 5).
 //
-// K2_ABLATE (only for timing where the time goes; the result is wrong): 1 copies
-// no g into the ring, 2 adds nothing into the accumulator.
-//
-// A wait on an mbarrier that lasts over 2^34 cycles (about 10 s) traps instead of
-// hanging the card.
+// K2_ABLATE (only for timing where the time goes; the result is wrong): 1 loads no
+// g (each lane adds a constant), 2 adds nothing into the accumulator.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,9 +63,11 @@ namespace {
 constexpr int kMaxS = 4;             // samples per bin and axis
 constexpr int kMaxTaps = 2 * kMaxS;  // distinct rows (columns) one bin touches
 constexpr int kMaxBins = 32;         // p
-constexpr int kMaxBatch = 32;        // ROIs to a batch: a lane each when the stages are listed
-constexpr int kThreads = 512;        // consumer threads; a producer warp comes on top
-constexpr int kBlock = kThreads + 32;
+constexpr int kThreads = 512;
+constexpr int kAhead = 2;            // ROIs whose g is fetched into L2 ahead of use
+#ifndef K2_ABLATE
+#define K2_ABLATE 0
+#endif
 constexpr int kMaxSmem = 232448;     // shared memory a block may opt in to
 
 struct BinTaps {
@@ -77,17 +76,17 @@ struct BinTaps {
   int count;
 };
 
-// four channels of g from shared memory; returns the OR of their bits (0 only if
-// all four are +0)
-__device__ __forceinline__ unsigned load4(const float* p, float (&v)[4]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
+// four channels of g, read-only through the texture path; returns the OR of their
+// bits (0 only if all four are +0)
+__device__ __forceinline__ unsigned load4g(const float* p, float (&v)[4]) {
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
   v[0] = __uint_as_float(x.x); v[1] = __uint_as_float(x.y);
   v[2] = __uint_as_float(x.z); v[3] = __uint_as_float(x.w);
   return x.x | x.y | x.z | x.w;
 }
 
-__device__ __forceinline__ unsigned load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ unsigned load4g(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
   const float2 a = __bfloat1622float2(h[0]);
   const float2 b = __bfloat1622float2(h[1]);
@@ -106,48 +105,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
   o.x = *reinterpret_cast<uint32_t*>(&lo);
   o.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = o;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// the phase of `bar` that has `parity` is complete
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  const long long t0 = clock64();
-  unsigned ok = 0;
-  while (true) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(ok)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (ok) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// copy `bytes` (a multiple of 16) from global to shared memory; `bar` completes
-// when they have landed
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 __device__ __forceinline__ float round_to(float x, int is_bf16) {
@@ -217,7 +174,7 @@ __device__ void bin_taps(float lo_in, float hi_in, float scale, int q, int p, in
 struct Params {
   int n, h, w, c, r, p, s;
   float scale;
-  int th, tw, tiles_y, tiles_x, batch, slots;
+  int th, tw, tiles_y, tiles_x, batch;
 };
 
 // One ROI's footprint: the rows and columns the taps of its first and last bins
@@ -247,49 +204,35 @@ __device__ void footprint(const float* b, float scale, int p, int s, int h, int 
 }
 
 template <typename T, int V>
-__global__ void __launch_bounds__(kBlock, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
                      T* __restrict__ out, Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int is_bf16 = sizeof(T) == 2;
-  const int p = a.p, c = a.c, th = a.th, tw = a.tw, batch = a.batch, slots = a.slots;
+  const int p = a.p, c = a.c, th = a.th, tw = a.tw, batch = a.batch;
   const int tile = blockIdx.x % (a.tiles_y * a.tiles_x);
   const int n = blockIdx.x / (a.tiles_y * a.tiles_x);
   const int y0 = (tile / a.tiles_x) * th, x0 = (tile % a.tiles_x) * tw;
   const int y1 = min(y0 + th, a.h) - 1, x1 = min(x0 + tw, a.w) - 1;   // the tile, inclusive
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
-  // shared memory, in the order of the wrapper's `bwd_smem`
   float* acc = reinterpret_cast<float*>(smem);                   // (th, tw, C) f32
   // the chunk's ROIs that meet the tile: (ROI, first column, last column, -)
   int4* rois = reinterpret_cast<int4*>(acc + (size_t)th * tw * c);  // (kThreads)
-  int4* stages = rois + kThreads;                                // (batch * p): ROI, q, x0, 16 B
-  float* wyt = reinterpret_cast<float*>(stages + batch * p);     // (batch, p, th)
+  float* wyt = reinterpret_cast<float*>(rois + kThreads);         // (batch, p, th)
   float* wxt = wyt + (size_t)batch * p * th;                     // (batch, p, tw)
   int* qspan = reinterpret_cast<int*>(wxt + (size_t)batch * p * tw);  // (batch, p, 2): tile rows
   unsigned* colmask = reinterpret_cast<unsigned*>(qspan + batch * 2 * p);  // (batch, tw): bins x
   unsigned* qbits = colmask + batch * tw;                        // (batch): bins q in the tile
   unsigned* xbits = qbits + batch;                               // (batch): bins x in the tile
-  int* wcount = reinterpret_cast<int*>(xbits + batch);           // (kThreads / 32 + 1)
-  // then, 16-byte aligned, a full and an empty mbarrier a slot, and the ring
-  const size_t bars_at = ((size_t)(wcount + kThreads / 32 + 1 - reinterpret_cast<int*>(smem)) * 4
-                          + 15) / 16 * 16;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bars_at);   // (slots): its g has landed
-  uint64_t* empty = full + slots;                                 // (slots): every warp is done
-  T* ring = reinterpret_cast<T*>(empty + slots);                  // (slots, p, C)
-  const int slot = p * c;
+  int* wcount = reinterpret_cast<int*>(xbits + batch);           // (kThreads / 32)
   unsigned smem_size;
   asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_size));
-  if (bars_at + (size_t)slots * (16 + slot * sizeof(T)) > smem_size) __trap();  // the wrapper's
-  if (tid == 0) {
-    for (int k = 0; k < slots; ++k) {
-      bar_init(full + k, 1);
-      bar_init(empty + k, kThreads / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  if ((size_t)(wcount + kThreads / 32 - reinterpret_cast<int*>(smem)) * 4 > smem_size) {
+    __trap();   // the layout does not fit the wrapper's `bwd_smem`
   }
 
-  for (int i = tid; i < th * tw * c / 4; i += kBlock) {
+  for (int i = tid; i < th * tw * c / 4; i += kThreads) {
     store4(acc + (size_t)i * 4, make_float4(0.f, 0.f, 0.f, 0.f));
   }
 
@@ -297,19 +240,22 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
   // that a warp's loads and stores of one 4-channel step are contiguous
   const int lanes = c / V;
   const int groups = kThreads / lanes;
-  const int gi = tid / lanes, li = tid - gi * lanes;   // the producer warp: gi >= groups
+  const int gi = tid / lanes, li = tid - gi * lanes;
   const T* gimg = g + (size_t)n * a.r * p * p * c;
   const float* bimg = boxes + (size_t)n * a.r * 4;
+  // this thread's 128-byte line of g to ask L2 for ahead of use: (bin q, bin x, line)
+  const int lines = (c * (int)sizeof(T) + 127) / 128;
+  const int pf_bin = tid / lines, pf_q = pf_bin / p, pf_x = pf_bin - pf_q * p;
+  const size_t pf_at = (size_t)pf_bin * c * sizeof(T) + (tid - pf_bin * lines) * 128;
 
-  int fed = 0;   // stages through the ring so far
   for (int base = 0; base < a.r; base += kThreads) {
     // the ROIs of this chunk whose footprint meets the tile, in order
     const int roi = base + tid;
     int fp[4] = {1, 0, 1, 0};
-    if (roi < a.r && tid < kThreads) footprint(bimg + (size_t)roi * 4, a.scale, p, a.s, a.h, a.w, is_bf16, fp);
-    const bool meets = roi < a.r && tid < kThreads && fp[0] <= y1 && fp[1] >= y0 && fp[2] <= x1 && fp[3] >= x0;
+    if (roi < a.r) footprint(bimg + (size_t)roi * 4, a.scale, p, a.s, a.h, a.w, is_bf16, fp);
+    const bool meets = roi < a.r && fp[0] <= y1 && fp[1] >= y0 && fp[2] <= x1 && fp[3] >= x0;
     const unsigned vote = __ballot_sync(0xffffffffu, meets);
-    if (lane == 0 && tid < kThreads) wcount[warp] = __popc(vote);
+    if (lane == 0) wcount[warp] = __popc(vote);
     __syncthreads();
     int at = 0, total = 0;
     for (int v = 0; v < kThreads / 32; ++v) {
@@ -328,7 +274,7 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
       // tile's rows or Wx over its columns, whether the bin has a weight there, the
       // tile rows it has weights on (Wy), and its bit in the masks of the columns
       // it has weights on (Wx)
-      for (int k = tid; k < batch * (tw + 2); k += kBlock) colmask[k] = 0;  // and the bits
+      for (int k = tid; k < batch * (tw + 2); k += kThreads) colmask[k] = 0;  // and the bits
       __syncthreads();
       if (tid < nb * 2 * p) {
         const int i = tid / (2 * p), axis = (tid / p) % 2, q = tid % p;
@@ -360,114 +306,85 @@ roi_align_bwd_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
       }
       __syncthreads();
 
-      // the stages, in order: (ROI i, bin q) for the bins q with weight in the
-      // tile's rows, with the run of g of the bins x that reach the tile
-      if (warp == 0) {
-        const unsigned qm = lane < nb && xbits[lane] ? qbits[lane] : 0u;
-        const int cnt = __popc(qm);
-        int incl = cnt;
-#pragma unroll
-        for (int d = 1; d < 32; d *= 2) {
-          const int v = __shfl_up_sync(0xffffffffu, incl, d);
-          if (lane >= d) incl += v;
-        }
-        if (qm) {
-          const unsigned xm = xbits[lane];
-          const int xlo = __ffs(xm) - 1, xhi = 31 - __clz(xm);
-          const int pieces = (xhi - xlo + 1) * c * (int)sizeof(T) / 16;
-          int k = incl - cnt;
-          for (unsigned m = qm; m; m &= m - 1) {
-            stages[k++] = make_int4(lane, __ffs(m) - 1, xlo, pieces);
+      // compute: group gi owns the tile's columns x0 + gi, x0 + gi + groups, ...
+      for (int i = 0; i < nb; ++i) {
+        // ask L2 for the bins the tile needs of the ROI kAhead on (of the first
+        // kAhead + 1 at the start of a batch), a line a thread (bins past 512 lines
+        // are not asked for)
+        for (int j = i == 0 ? 0 : i + kAhead; j <= i + kAhead && j < nb; ++j) {
+          if (K2_ABLATE != 1 && pf_q < p && (qbits[j] >> pf_q & 1u) &&
+              (xbits[j] >> pf_x & 1u)) {
+            const char* bins =
+                reinterpret_cast<const char*>(gimg + (size_t)rois[b0 + j].x * p * p * c);
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(bins + pf_at));
           }
         }
-        if (lane == 31) wcount[kThreads / 32] = incl;
-      }
-      __syncthreads();
-      const int ns = wcount[kThreads / 32];
-
-      if (tid >= kThreads) {
-        // the producer: each stage into its slot once every warp is done with the
-        // slot's last stage
-        if (lane == 0) {
-          for (int st = 0; st < ns; ++st) {
-            const int u = fed + st, k = u % slots;
-            bar_wait(empty + k, ((u / slots) & 1) ^ 1);
-            const int4 e = stages[st];
+        if (gi >= groups) continue;
+        const int4 roi_i = rois[b0 + i];
+        const float* wy = wyt + (size_t)i * p * th;
+        const float* wx = wxt + (size_t)i * p * tw - x0;
+        const int* span = qspan + i * p * 2;
+        const unsigned qmask = qbits[i];        // the bins q with a weight in the tile's rows
+        const T* gr = gimg + (size_t)roi_i.x * p * p * c + li * 4;
+        int col = x0 + gi;
+        while (col < roi_i.y) col += groups;
+        for (; col <= roi_i.z; col += groups) {
+          const unsigned xmask = colmask[i * tw + col - x0];  // the bins x with a weight here
+          if (xmask == 0) continue;
+          float* cell = acc + (size_t)(col - x0) * c + li * 4;
+          for (unsigned qm = qmask; qm; qm &= qm - 1) {
+            const int q = __ffs(qm) - 1;
+            float t[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) t[v] = 0.0f;
+            unsigned nz = 0;
+            for (unsigned xm = xmask; xm; xm &= xm - 1) {
+              const int x = __ffs(xm) - 1;
+              const float wgt = wx[x * tw + col];
+              const T* src = gr + (size_t)(q * p + x) * c;
+#pragma unroll
+              for (int k = 0; k < V / 4; ++k) {
+                float gv[4];
 #if K2_ABLATE == 1
-            bar_arrive(full + k);
+                gv[0] = gv[1] = gv[2] = gv[3] = wgt;
+                nz = 1;
+                (void)src;
 #else
-            bulk_copy(ring + (size_t)k * slot,
-                      gimg + (((size_t)rois[b0 + e.x].x * p + e.y) * p + e.z) * c,
-                      (unsigned)e.w * 16, full + k);
+                nz |= load4g(src + k * lanes * 4, gv);
 #endif
-          }
-        }
-      } else {
-        for (int st = 0; st < ns; ++st) {
-          const int u = fed + st, k = u % slots;
-          bar_wait(full + k, (u / slots) & 1);
-          if (gi < groups) {
-            const int4 e = stages[st];
-            const int i = e.x, q = e.y;
-            const int4 roi_i = rois[b0 + i];
-            const float* wy = wyt + ((size_t)i * p + q) * th;
-            const float* wx = wxt + (size_t)i * p * tw - x0;
-            const int lo = qspan[(i * p + q) * 2], hi = qspan[(i * p + q) * 2 + 1];
-            const T* gs = ring + (size_t)k * slot + li * 4;
-            int col = x0 + gi;
-            while (col < roi_i.y) col += groups;
-            for (; col <= roi_i.z; col += groups) {
-              const unsigned xmask = colmask[i * tw + col - x0];  // the bins x with a weight here
-              if (xmask == 0) continue;
-              float t[V];
 #pragma unroll
-              for (int v = 0; v < V; ++v) t[v] = 0.0f;
-              unsigned nz = 0;
-              for (unsigned xm = xmask; xm; xm &= xm - 1) {
-                const int x = __ffs(xm) - 1;
-                const float wgt = wx[x * tw + col];
-                const T* src = gs + (size_t)(x - e.z) * c;
-#pragma unroll
-                for (int k4 = 0; k4 < V / 4; ++k4) {
-                  float gv[4];
-                  nz |= load4(src + k4 * lanes * 4, gv);
-#pragma unroll
-                  for (int v = 0; v < 4; ++v) t[4 * k4 + v] = fmaf(wgt, gv[v], t[4 * k4 + v]);
-                }
+                for (int v = 0; v < 4; ++v) t[4 * k + v] = fmaf(wgt, gv[v], t[4 * k + v]);
               }
+            }
+            if (nz == 0) continue;
 #if K2_ABLATE == 2
-              if (nz != 0xdeadbeefu) continue;
+            if (a.r >= 0) continue;   // always, but the compiler keeps the loads and t
 #endif
-              if (nz == 0) continue;
-              float* cell = acc + (size_t)(col - x0) * c + li * 4;
-              for (int r = lo; r <= hi; ++r) {
-                const float wgt = wy[r];
-                if (wgt == 0.0f) continue;
-                float* dst = cell + (size_t)r * tw * c;
+            const int lo = span[2 * q], hi = span[2 * q + 1];
+            for (int r = lo; r <= hi; ++r) {
+              const float wgt = wy[q * th + r];
+              if (wgt == 0.0f) continue;
+              float* dst = cell + (size_t)r * tw * c;
 #pragma unroll
-                for (int k4 = 0; k4 < V / 4; ++k4) {
-                  float4 o = *reinterpret_cast<float4*>(dst + k4 * lanes * 4);
-                  o.x = fmaf(wgt, t[4 * k4], o.x);
-                  o.y = fmaf(wgt, t[4 * k4 + 1], o.y);
-                  o.z = fmaf(wgt, t[4 * k4 + 2], o.z);
-                  o.w = fmaf(wgt, t[4 * k4 + 3], o.w);
-                  store4(dst + k4 * lanes * 4, o);
-                }
+              for (int k = 0; k < V / 4; ++k) {
+                float4 o = *reinterpret_cast<float4*>(dst + k * lanes * 4);
+                o.x = fmaf(wgt, t[4 * k], o.x);
+                o.y = fmaf(wgt, t[4 * k + 1], o.y);
+                o.z = fmaf(wgt, t[4 * k + 2], o.z);
+                o.w = fmaf(wgt, t[4 * k + 3], o.w);
+                store4(dst + k * lanes * 4, o);
               }
             }
           }
-          __syncwarp();
-          if (lane == 0) bar_arrive(empty + k);
         }
       }
-      fed += ns;
       __syncthreads();
     }
   }
 
   // the tile, once, in the feature dtype
   const int rows = y1 - y0 + 1, cols = x1 - x0 + 1, cgs = c / 4;
-  for (int i = tid; i < rows * cols * cgs; i += kBlock) {
+  for (int i = tid; i < rows * cols * cgs; i += kThreads) {
     const int cell = i / cgs, ch = (i - cell * cgs) * 4;
     const int ry = cell / cols, rx = cell - ry * cols;
     const float4 v = *reinterpret_cast<const float4*>(acc + ((size_t)ry * tw + rx) * c + ch);
@@ -483,16 +400,8 @@ int launch(const void* g, const void* boxes, void* out, const Params& a, int sme
                                          smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(a.n * a.tiles_y * a.tiles_x));
-  kernel<<<grid, kBlock, smem, st>>>((const T*)g, (const float*)boxes, (T*)out, a);
+  kernel<<<grid, kThreads, smem, st>>>((const T*)g, (const float*)boxes, (T*)out, a);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_v(int v, const void* g, const void* boxes, void* out, const Params& a, int smem,
-             cudaStream_t st) {
-  return v == 16 ? launch<T, 16>(g, boxes, out, a, smem, st)
-       : v == 8  ? launch<T, 8>(g, boxes, out, a, smem, st)
-                 : launch<T, 4>(g, boxes, out, a, smem, st);
 }
 
 }  // namespace
@@ -504,27 +413,29 @@ const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 // g (N, R, p, p, C) in the feature dtype (0 = f32, 1 = bf16); boxes (N, R, 4) f32
 // XYXY in image coordinates; out (N, H, W, C) in the feature dtype, written once,
 // whole. The plan (the wrapper's `bwd_plan`): tiles of th x tw map cells with every
-// channel, tables for `batch` ROIs at a time (2 * p * batch <= 512, batch <= 32),
-// C / v lanes to a column (v of 4, 8, 16 dividing C, at most 512 lanes), `slots`
-// slots in the ring (2 to 64), `smem` bytes of shared memory a block as
-// `bwd_smem` lays it out (the kernel traps if its layout does not fit). C a multiple
-// of 4, every pointer 16-byte aligned (the wrapper checks). Launches on `stream`;
-// returns cudaGetLastError().
+// channel, tables for `batch` ROIs at a time (2 * p * batch <= 512), at most 512
+// lanes to a column (C / 16, or C / 4 where C is not a multiple of 16), and `smem`
+// bytes of shared memory a block as the wrapper's `bwd_smem` lays it out (the kernel
+// traps if its layout does not fit). C a multiple of 4, every pointer 16-byte
+// aligned (the wrapper checks). Launches on `stream`; returns cudaGetLastError().
 int pt_roi_align_bwd(const void* g, const void* boxes, void* out, int n, int h, int w, int c,
                      int r, int p, int s, float scale, int dtype, int th, int tw, int batch,
-                     int v, int slots, int smem, void* stream) {
+                     int smem, void* stream) {
   if ((dtype != 0 && dtype != 1) || p < 1 || p > kMaxBins || s > kMaxS || s < 1 || c % 4 ||
-      th < 1 || tw < 1 || batch < 1 || batch > kMaxBatch || 2 * p * batch > kThreads ||
-      (v != 4 && v != 8 && v != 16) || c % v || c / v > kThreads || slots < 2 || slots > 64 ||
-      smem < 1 || smem > kMaxSmem) {
+      th < 1 || tw < 1 || batch < 1 || 2 * p * batch > kThreads ||
+      (c % 16 == 0 ? c / 16 : c / 4) > kThreads || smem < 1 || smem > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
   if (n * h * w == 0 || c == 0) return 0;
-  const Params a{n, h, w, c, r, p, s, scale, th, tw, (h + th - 1) / th, (w + tw - 1) / tw,
-                 batch, slots};
+  const Params a{n, h, w, c, r, p, s, scale, th, tw, (h + th - 1) / th, (w + tw - 1) / tw, batch};
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 0 ? launch_v<float>(v, g, boxes, out, a, smem, st)
-                    : launch_v<__nv_bfloat16>(v, g, boxes, out, a, smem, st);
+  // 16 channels a lane where C allows, else 4
+  if (c % 16 == 0) {
+    return dtype == 0 ? launch<float, 16>(g, boxes, out, a, smem, st)
+                      : launch<__nv_bfloat16, 16>(g, boxes, out, a, smem, st);
+  }
+  return dtype == 0 ? launch<float, 4>(g, boxes, out, a, smem, st)
+                    : launch<__nv_bfloat16, 4>(g, boxes, out, a, smem, st);
 }
 
 }  // extern "C"

@@ -11,7 +11,6 @@ it everywhere, and every caller passes boxes that are already detached.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -26,84 +25,67 @@ KERNEL = CudaKernel(
 )
 BWD_KERNEL = CudaKernel(
     "roi_align_bwd.cu", "pt_roi_align_bwd",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the backward kernel's limits (csrc/roi_align_bwd.cu checks them too): the shared
-# memory one block may opt in to on sm_90, its consumer threads and p
+# memory one block may opt in to on sm_90, its threads, and p
 BWD_SMEM_BYTES = 232448
 BWD_THREADS = 512
 BWD_MAX_BINS = 32
-# g bytes the ring holds at most: 12 stages of 7 bins of 512 bf16 channels
-BWD_RING_BYTES = 86016
 
 
 class BwdPlan(NamedTuple):
     """How the backward kernel tiles dF: tiles of ``th`` x ``tw`` map cells with
     every channel, ``tiles_y`` x ``tiles_x`` of them per image; tables for ``batch``
-    ROIs at a time; C / ``v`` lanes to a column; ``slots`` stages in the ring;
-    ``smem`` bytes of shared memory a block (:func:`bwd_smem`)."""
+    ROIs at a time; ``smem`` bytes of shared memory a block."""
     th: int
     tw: int
     tiles_y: int
     tiles_x: int
     batch: int
-    v: int
-    slots: int
     smem: int
 
 
-def bwd_smem(th: int, tw: int, c: int, p: int, batch: int, slots: int, esize: int) -> int:
-    """Shared memory of one block, in the order the kernel lays it out: the f32
-    accumulator (th, tw, C); the block's list of ROIs (512 int4) and of a batch's
-    stages (batch * p int4); the batch's tables (Wy, Wx, the rows of each bin q,
-    the column masks, the bin masks) and the warps' counts; then, 16-byte aligned,
-    two mbarriers a slot and the ring: ``slots`` slots of p x C elements of
-    ``esize`` bytes.
-    The kernel takes the total and traps if its layout does not fit."""
-    head = (4 * th * tw * c + 16 * BWD_THREADS + 16 * batch * p
-            + 4 * (batch * (p * (th + tw + 2) + tw + 2) + BWD_THREADS // 32 + 1))
-    return -(-head // 16) * 16 + slots * (16 + p * c * esize)
+def bwd_smem(th: int, tw: int, c: int, p: int, batch: int) -> int:
+    """Shared memory of one block, in the order ``csrc/roi_align_bwd.cu`` lays it
+    out: the f32 accumulator (th, tw, C), the block's list of ROIs (512 int4), the
+    tables of a batch of them (Wy, Wx, the tile rows of each bin q, the column masks,
+    the bin masks) and the warps' counts. The launch passes the total; the kernel
+    traps if its layout does not fit."""
+    return 4 * (th * tw * c + 4 * BWD_THREADS + batch * (p * (th + tw + 2) + tw + 2)
+                + BWD_THREADS // 32)
 
 
-@functools.lru_cache(maxsize=64)
-def bwd_plan(h: int, w: int, c: int, p: int, esize: int) -> BwdPlan:
-    """The tiling of ``csrc/roi_align_bwd.cu`` for an (H, W, C) map, p x p bins and
-    features of ``esize`` bytes.
+def bwd_plan(h: int, w: int, c: int, p: int) -> BwdPlan:
+    """The tiling of ``csrc/roi_align_bwd.cu`` for an (H, W, C) map and p x p bins.
 
-    Tables for as many ROIs as 512 threads serve (2 p a ROI), 32 at most. The
-    ring holds as many stages (a ROI's bin row, p x C elements) as fit
-    ``BWD_RING_BYTES``, 4 to 64. A column of a tile goes to C / v lanes, so a block
-    of 512 threads works on 512 v / C columns at once. For each v and band height, the widest tile that fits the shared memory, evened out over the
-    map. The plan taken minimises the tile visits of a ROI about p cells across,
-    (th + p)(tw + p) / (th tw), over the share of the column groups that have a
-    column (tw over tw rounded up to a multiple of the groups); then the fewest
-    tiles. Raises where p is over 32 or nothing fits.
+    A column of a tile goes to a group of C / 16 lanes (C / 4 where C is not a
+    multiple of 16), so a block of 512 threads works on 512 / lanes columns at
+    once. For each batch size and band height, the widest tile that fits the
+    shared memory, evened out over the map. The plan taken minimises the tile
+    visits of a ROI about p cells across, (th + p)(tw + p) / (th tw), over the
+    share of the groups that have a column (tw over tw rounded up to a multiple
+    of the groups); then the fewest tiles. Raises where p is over 32 or a column
+    needs more than 512 lanes.
     """
-    if p > BWD_MAX_BINS:
-        raise ValueError(f"roi_align_backward: output_size {p} is beyond the kernel's "
+    lanes = c // 16 if c % 16 == 0 else c // 4
+    if lanes > BWD_THREADS or p > BWD_MAX_BINS:
+        raise ValueError(f"roi_align_backward: {c} channels ({lanes} lanes a column) or "
+                         f"output_size {p} beyond the kernel's {BWD_THREADS} lanes and "
                          f"{BWD_MAX_BINS} bins")
-    slots = max(4, min(64, BWD_RING_BYTES // (p * c * esize)))
-    batch = min(32, BWD_THREADS // (2 * p))
+    groups = BWD_THREADS // lanes
     best = None
-    for v in (16, 8, 4):
-        lanes = c // v
-        if c % v or lanes > BWD_THREADS:
+    for batch in (32, 16, 8):
+        if 2 * p * batch > BWD_THREADS:
             continue
-        groups = BWD_THREADS // lanes
         for th in range(1, h + 1):
-            def fits(tw):
-                return bwd_smem(th, tw, c, p, batch, slots, esize) <= BWD_SMEM_BYTES
-            # the smem grows by 4 (th C + batch (p + 1)) bytes a column, give or take
-            # the 16-byte rounding
-            tw = (BWD_SMEM_BYTES - bwd_smem(th, 0, c, p, batch, slots, esize)) // (
-                4 * (th * c + batch * (p + 1)))
-            tw = min(w, tw + 1)
-            while tw >= 1 and not fits(tw):
-                tw -= 1
+            free = (BWD_SMEM_BYTES // 4 - 4 * BWD_THREADS - batch * (p * (th + 2) + 2)
+                    - BWD_THREADS // 32)
+            tw = min(w, free // (th * c + batch * (p + 1)))
             if tw < 1:
                 break
             ny, nx = -(-h // th), -(-w // tw)
@@ -111,12 +93,8 @@ def bwd_plan(h: int, w: int, c: int, p: int, esize: int) -> BwdPlan:
             used = tw_e / (-(-tw_e // groups) * groups)
             key = ((th_e + p) * (tw_e + p) / (th_e * tw_e) / used, ny * nx)
             if best is None or key < best[0]:
-                best = (key, BwdPlan(th_e, tw_e, ny, nx, batch, v, slots,
-                                     bwd_smem(th_e, tw_e, c, p, batch, slots, esize)))
-    if best is None:
-        raise ValueError(f"roi_align_backward: {c} channels do not fit the kernel: a "
-                         f"column needs more than {BWD_THREADS} lanes, or one map cell "
-                         "and its ring more than its shared memory")
+                best = (key, BwdPlan(th_e, tw_e, ny, nx, batch,
+                                     bwd_smem(th_e, tw_e, c, p, batch)))
     return best[1]
 
 
@@ -187,15 +165,14 @@ def roi_align_backward(grad: torch.Tensor, boxes: torch.Tensor, feat_shape, dtyp
         raise ValueError(f"roi_align_backward: grad {tuple(grad.shape)} is not "
                          f"{(n, r, p, p, c)} with C a multiple of 4")
     _check_aligned(grad, "roi_align_backward", "grad (N, R, p, p, C)")
-    plan = bwd_plan(h, w, c, p, grad.element_size())
+    plan = bwd_plan(h, w, c, p)
     boxes = boxes.to(torch.float32).contiguous()
     out = torch.empty((n, h, w, c), dtype=dtype, device=grad.device)
     if out.numel() == 0:
         return out
     BWD_KERNEL.launch(grad.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, h, w, c, r, p, s,
                       float(spatial_scale), _DTYPES[dtype], plan.th, plan.tw, plan.batch,
-                      plan.v, plan.slots, plan.smem,
-                      torch.cuda.current_stream(grad.device).cuda_stream)
+                      plan.smem, torch.cuda.current_stream(grad.device).cuda_stream)
     return out
 
 

@@ -51,31 +51,25 @@ def test_bwd_plain_matches_jax_vjp_on_tile_cases(name, dtype, tol):
 
 @pytest.mark.parametrize("name", list(roi_bwd_cases.CASES))
 def test_bwd_plan_tiles_the_cases(name):
-    """The kernel's tiling covers the map, a block fits its shared memory, in bf16
-    and f32, and the cases cross tiles as ``roi_bwd_cases`` says."""
+    """The kernel's tiling covers the map, a block fits its shared memory, and the
+    cases cross tiles as ``roi_bwd_cases`` says."""
     _, h, w, c, _ = roi_bwd_cases.CASES[name]
-    for esize in (2, 4):
-        plan = roi_align_cuda.bwd_plan(h, w, c, 7, esize)
-        assert (plan.tiles_y - 1) * plan.th < h <= plan.tiles_y * plan.th
-        assert (plan.tiles_x - 1) * plan.tw < w <= plan.tiles_x * plan.tw
-        assert plan.smem == roi_align_cuda.bwd_smem(plan.th, plan.tw, c, 7, plan.batch,
-                                                     plan.slots, esize)
-        assert plan.smem <= roi_align_cuda.BWD_SMEM_BYTES
-        assert 2 * 7 * plan.batch <= roi_align_cuda.BWD_THREADS and plan.batch <= 32
-        assert c % plan.v == 0 and c // plan.v <= roi_align_cuda.BWD_THREADS
-    plan = roi_align_cuda.bwd_plan(h, w, c, 7, 2)
-    tiles = {"c512": (6, 11), "c64": (3, 3), "whole": (3, 3), "c16": (3, 1), "wide": (1, 13)}
+    plan = roi_align_cuda.bwd_plan(h, w, c, 7)
+    assert (plan.tiles_y - 1) * plan.th < h <= plan.tiles_y * plan.th
+    assert (plan.tiles_x - 1) * plan.tw < w <= plan.tiles_x * plan.tw
+    assert plan.smem == roi_align_cuda.bwd_smem(plan.th, plan.tw, c, 7, plan.batch)
+    assert plan.smem <= roi_align_cuda.BWD_SMEM_BYTES
+    assert 2 * 7 * plan.batch <= roi_align_cuda.BWD_THREADS
+    tiles = {"c512": (6, 6), "c64": (5, 1), "whole": (5, 1), "c16": (2, 1), "wide": (2, 4)}
     assert (plan.tiles_y, plan.tiles_x) == tiles.get(name, (1, 1))
-    if name == "c512":
+    if name in ("c512", "c64", "wide"):
         assert h % plan.th != 0
 
 
 def test_bwd_plan_at_the_recipe_shape_and_its_limit():
-    """The student's 38 x 84 x 512 map in bf16: 66 tiles of 7 x 8 cells with all
-    512 channels, 2 warps to a column, 12 stages in the ring; too many channels
-    raise."""
-    plan = roi_align_cuda.bwd_plan(38, 84, 512, 7, 2)
-    assert (plan.th, plan.tw, plan.tiles_y, plan.tiles_x, plan.batch, plan.v, plan.slots) == (
-        7, 8, 6, 11, 32, 8, 12)
+    """The student's 38 x 84 x 512 map: 36 tiles of 7 x 14 cells with all 512
+    channels, a column to each of 16 warps but 2; too many channels raise."""
+    plan = roi_align_cuda.bwd_plan(38, 84, 512, 7)
+    assert (plan.th, plan.tw, plan.tiles_y, plan.tiles_x, plan.batch) == (7, 14, 6, 6, 32)
     with pytest.raises(ValueError, match="lanes"):
-        roi_align_cuda.bwd_plan(4, 4, 60000, 7, 2)
+        roi_align_cuda.bwd_plan(4, 4, 60000, 7)
