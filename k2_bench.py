@@ -65,18 +65,40 @@ def time_tree(tree: Path) -> None:
         print("K2BENCH " + json.dumps({"case": label, "rois": [n, r], "ms": ms}), flush=True)
 
 
-def run_turn(label: str, tree: Path) -> list:
-    proc = subprocess.run([sys.executable, str(ROOT / "k2_bench.py"), "--time", str(tree)],
+def run_turn(label: str, tree: Path, script: str = "k2_bench.py", tag: str = "K2BENCH") -> list:
+    """Run ``script --time tree`` in a process of its own, from ``tree``; print and
+    return the rows it printed after ``tag``, each labelled with the turn."""
+    proc = subprocess.run([sys.executable, str(ROOT / script), "--time", str(tree)],
                           cwd=tree, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
-        raise SystemExit(f"k2_bench: the turn of {tree} failed (exit {proc.returncode}):\n"
+        raise SystemExit(f"{script}: the turn of {tree} failed (exit {proc.returncode}):\n"
                          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    rows = [json.loads(line[8:]) for line in proc.stdout.splitlines()
-            if line.startswith("K2BENCH ")]
+    rows = [json.loads(line[len(tag) + 1:]) for line in proc.stdout.splitlines()
+            if line.startswith(tag + " ")]
     for row in rows:
         row["tree"] = label
         print(json.dumps(row), flush=True)
     return rows
+
+
+def run_turns(trees, script: str = "k2_bench.py", tag: str = "K2BENCH") -> None:
+    """The other checkouts, this one twice, the others backwards; then each tree's
+    times per case."""
+    others = [(str(t), Path(t).resolve()) for t in trees]
+    turns = others + [("this", ROOT), ("this", ROOT)] + others[::-1]
+    rows = []
+    for label, tree in turns:
+        rows += run_turn(label, tree, script, tag)
+    for label in dict(turns):
+        for case in {row["case"]: None for row in rows}:
+            ms = [row["ms"] for row in rows if row["tree"] == label and row["case"] == case]
+            print(json.dumps({"summary": label, "case": case, "ms": ms}), flush=True)
+
+
+def print_card() -> None:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    print(card.stdout.strip(), flush=True)
 
 
 def ablate() -> None:
@@ -113,20 +135,10 @@ def main(argv=None) -> int:
     if args.time:
         time_tree(Path(args.time))
         return 0
-    others = [(str(t), Path(t).resolve()) for t in args.tree]
-    turns = others + [("this", ROOT), ("this", ROOT)] + others[::-1]
-    rows = []
-    for label, tree in turns:
-        rows += run_turn(label, tree)
-    for label in dict(turns):
-        for case in {row["case"]: None for row in rows}:
-            ms = [row["ms"] for row in rows if row["tree"] == label and row["case"] == case]
-            print(json.dumps({"summary": label, "case": case, "ms": ms}), flush=True)
+    run_turns(args.tree)
     if args.ablate:
         ablate()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60)
-    print(card.stdout.strip(), flush=True)
+    print_card()
     return 0
 
 

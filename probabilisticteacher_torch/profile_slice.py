@@ -16,10 +16,12 @@ one JSON line per path:
 - ``kernels`` and ``ops``: device time over one call from ``torch.profiler``, by
   kernel name and by the ``aten::`` operator that launched it (inclusive), the
   12 largest of each, and the device's busy share of the profiled call's wall
-  time (the profiler's own overhead lengthens that call). For the train steps,
-  ``roi_align_bwd_ms`` is the ROIAlign backward kernel's (K2's) share of the
-  backward, and ``nms_keep_ms`` the NMS kernel's (K3's) time over the whole step
-  (student RPN, teacher RPN, teacher class-aware NMS), from the same trace.
+  time (the profiler's own overhead lengthens that call). From the same trace,
+  each kernel's device time over the whole call (:func:`kernel_ms`):
+  ``roi_align_fwd_ms`` (K1: the teacher's and the student's ROIAlign in a
+  mutual step; the ROI heads' in ``detect``/``pseudo_labels``), and for the
+  train steps ``roi_align_bwd_ms`` (K2, in the backward) and ``nms_keep_ms``
+  (K3: student RPN, teacher RPN, teacher class-aware NMS).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -103,6 +105,18 @@ def _profile(fn):
             "ops": [[k, t] for k, t in op_rows[:12]]}, kernel_rows
 
 
+# the CUDA kernels' names in the profiler's rows: K1, K2, K3
+KERNEL_ROWS = {"roi_align_fwd_ms": "roi_align_fwd_kernel",
+               "roi_align_bwd_ms": "roi_align_bwd_kernel",
+               "nms_keep_ms": "nms_keep_kernel"}
+
+
+def kernel_ms(kernel_rows, name: str) -> float:
+    """Device ms of the profiler rows (kernel name, ms) whose name holds ``name``:
+    one kernel's time summed over its instantiations."""
+    return sum(t for k, t in kernel_rows if name in k)
+
+
 def _host_ms(fn, reps):
     calls = []
     for _ in range(reps):
@@ -121,9 +135,10 @@ def _inference(path, det, batch, card):
     stages = [_staged(det, batch, training) for _ in range(REPS)]
     mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
     calls = _host_ms(lambda: fn(batch), REPS)
-    prof, _ = _profile(lambda: fn(batch))
-    return {"path": path, "batch": BATCH, "card": card, "stages_ms": mean, "call_ms": calls,
-            **prof}
+    prof, kernel_rows = _profile(lambda: fn(batch))
+    return {"path": path, "batch": BATCH, "card": card, "stages_ms": mean,
+            "roi_align_fwd_ms": kernel_ms(kernel_rows, KERNEL_ROWS["roi_align_fwd_ms"]),
+            "call_ms": calls, **prof}
 
 
 def _train_data(cfg, gen):
@@ -183,12 +198,11 @@ def _train(path, cfg, card):
     mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
     calls = _host_ms(one, REPS)
     prof, kernel_rows = _profile(one)
-    k2 = sum(t for k, t in kernel_rows if "roi_align_bwd_kernel" in k)
-    k3 = sum(t for k, t in kernel_rows if "nms_keep_kernel" in k)
     n_img = TRAIN_N if path == "burnin_step" else 2 * TRAIN_N
     return {"path": path, "labeled": TRAIN_N, "unlabeled": 0 if path == "burnin_step" else TRAIN_N,
-            "card": card, "stages_ms": mean, "roi_align_bwd_ms": k2,
-            "nms_keep_ms": k3, "call_ms": calls,
+            "card": card, "stages_ms": mean,
+            **{key: kernel_ms(kernel_rows, name) for key, name in KERNEL_ROWS.items()},
+            "call_ms": calls,
             "img_per_s": n_img / (sum(calls) / len(calls) / 1e3),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **prof}
 

@@ -8,7 +8,9 @@ fixture, never at import, so every pytest worker collects the same tests.
 
 Tolerances: ROIAlign forward bf16 2e-2 * max|F| (the plain version rounds its
 interpolation matrices and the y-interpolated intermediate to bf16, as the JAX
-package does), f32 1e-5 * max|F|; ROIAlign backward bf16 2e-2 * max|dF| and f32
+package does), f32 1e-5 * max|F|, on the boxes of every ``roi_bwd_cases.py`` case,
+ROIs one cell tall, taller than the map and with samples on the last row, and
+poolings other than (7, 2); ROIAlign backward bf16 2e-2 * max|dF| and f32
 1e-5 * max|dF| (the kernel does not round its intermediate to bf16), on the
 tile-crossing cases of ``roi_bwd_cases.py`` too, and two launches bit-identical
 (each block adds into its own tile in a fixed order); NMS keep sets exactly
@@ -60,6 +62,76 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, tol):
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * feat.float().abs().max().item(), err
+
+
+def _check_fwd(feat, boxes, dtype, tol, p=7, s=2, nonfinite=()):
+    """K1 against the plain version on the images whose boxes are finite; the
+    images with a non-finite box must come out finite (their taps are clamped to
+    the map), where the plain version gives NaN."""
+    before = roi_align_cuda.KERNEL.launches
+    got = roi_align_cuda.roi_align(feat, boxes, 1.0 / 16, p, s)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.KERNEL.launches == before + 1
+    want = roi_align_batched(feat, boxes, 1.0 / 16, p, s)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    finite = [i for i in range(feat.shape[0]) if i not in nonfinite]
+    err = (got.float()[finite] - want.float()[finite]).abs().max().item()
+    assert err <= tol * feat.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", list(roi_bwd_cases.CASES))
+def test_roi_align_kernel_box_cases(cuda, name, dtype, tol):
+    """K1 on the boxes of every ``roi_bwd_cases`` case under seeded features of
+    that shape: wide maps, C = 16/24/64/512, sub-cell and whole-map boxes, boxes
+    over every edge, degenerate, inverted and non-finite ones."""
+    shape, boxes, _, nonfinite = roi_bwd_cases.make(name)
+    feat = torch.from_numpy(np.random.RandomState(3).randn(*shape).astype(np.float32))
+    _check_fwd(feat.to(cuda, dtype), torch.from_numpy(boxes).to(cuda), dtype, tol,
+               nonfinite=nonfinite)
+
+
+def _edge_boxes(kind, h, w, r=12):
+    """Boxes of one kind on an (h, w) stride-16 map: ``cell``, one map cell tall and
+    wide, starting at a cell centre (all 14 samples of an axis share 2 rows);
+    ``tall``, taller (and wider) than the map; ``last_row``, samples exactly on
+    and just past the last row and column, where i0 == i1."""
+    rng = np.random.RandomState(len(kind))
+    a = rng.randint(0, [w - 1, h - 1], (r, 2)).astype(np.float32)
+    if kind == "cell":
+        xy = a * 16 + 8
+        b = np.concatenate([xy, xy + 16], -1)
+    elif kind == "tall":
+        x = a[:, :1] * 16
+        b = np.concatenate([x, rng.uniform(-200, -1, (r, 1)), x + rng.uniform(20, 300, (r, 1)),
+                            h * 16 + rng.uniform(1, 200, (r, 1))], -1)
+        b[0] = [-100, -100, w * 16 + 100, h * 16 + 100]
+    else:
+        last = np.array([w - 0.5, h - 0.5], np.float32) * 16       # scaled coordinate = size - 1
+        xy = a * 16
+        b = np.concatenate([xy, np.broadcast_to(last, (r, 2))], -1)
+        b[0] = [*last, *last]                                      # every sample on the last cell
+        b[1] = [*last, *(last + 16)]                               # samples in (size - 1, size]
+        b[2] = [last[0] - 40, last[1], last[0], last[1]]           # zero height on the last row
+    return np.ascontiguousarray(b[None], dtype=np.float32)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kind", ["cell", "tall", "last_row"])
+def test_roi_align_kernel_edge_rows(cuda, kind, dtype, tol):
+    h, w, c = 12, 20, 64
+    feat = torch.from_numpy(np.random.RandomState(4).randn(1, h, w, c).astype(np.float32))
+    boxes = torch.from_numpy(_edge_boxes(kind, h, w))
+    _check_fwd(feat.to(cuda, dtype), boxes.to(cuda), dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("p,s", [(14, 2), (5, 3), (7, 4)])
+def test_roi_align_kernel_other_pooling(cuda, p, s, dtype, tol):
+    """Poolings other than the recipe's (7, 2) run the runtime-p instantiation."""
+    feat, boxes = _roi_case(cuda, dtype, r=64)
+    _check_fwd(feat, boxes, dtype, tol, p, s)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
