@@ -44,7 +44,27 @@ Phases (each failure exits non-zero; none is caught and passed over):
    TF32 off, on a small input with the same weights and draws: losses within
    1e-4 relative, every parameter gradient (``anchor_wh`` included) within 1e-3 of
    its scale, its L2 norm;
-8. one JSON line of the kernels' launches, error, time (CUDA events), bound and
+8. the port's CLI on the card, ``train_net.main`` in this process, with the recipe
+   ``configs/pt/final_c2f.yaml`` unchanged (VGG16, 8 classes, AMP bf16, 16 + 16
+   images, canvas 608 x 1344; random weights from ``SEED`` 0) on a synthetic VOC
+   tree written to a temporary ``DETECTRON2_DATASETS`` root: the recipe's three
+   splits, 32 labeled, 32 unlabeled and 16 val Cityscapes-sized (2048 x 1024)
+   JPEGs with 20 boxes each, from a fixed seed. ``SOLVER.MAX_ITER`` 4 with
+   ``BURN_UP_STEP`` 2, checkpoints every 2 and the dual eval at 4: 2 burn-in and 2
+   mutual steps through the host loader and the stream prefetcher, then the
+   final teacher eval. Checks: losses finite, ``metrics.json`` holds the
+   iterations written, checkpoints at 2 and 4 with the ``last_checkpoint``
+   marker, finite ``mAP50``, the EvalHook's teacher metrics equal to the final
+   eval's (1e-6), and each kernel launched. Then ``--resume`` to 6 (it starts at
+   4 with teacher, student and momentum equal to the saved ones bit for bit and
+   takes 2 mutual steps), ``--eval-only`` of ``model_0000004`` (the student, as
+   the root ``train_net.py`` evaluates) equal to the EvalHook's student metrics
+   of the same weights (1e-6), and ``Predictor(checkpoint_path=...)`` on one val
+   image equal to the teacher's ``detect`` on that image's canvas (1e-4 px).
+   Prints the host decoder, ms per iteration with the loader in the loop, the
+   loader's ``data_time``, the share of the step waiting on data and eval
+   images/s;
+9. one JSON line of the kernels' launches, error, time (CUDA events), bound and
    plain-version time. No kernel has one PyTorch call that computes the same
    function (core PyTorch has no ROIAlign, ROIAlign backward or NMS), so
    ``library_ms`` is null.
@@ -55,7 +75,9 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -694,6 +716,279 @@ def phase_train_reference(dev) -> None:
     check(errs["grad_err"] <= TRAIN_REF_GRAD_TOL, "card gradients differ from the CPU path")
 
 
+# --------------------------------------------------------------------- phase 8
+CLI_CONFIG = "configs/pt/final_c2f.yaml"
+CLI_SPLITS = (("VOC2007_citytrain", "train", 32), ("VOC2007_foggytrain", "train", 32),
+              ("VOC2007_foggyval", "val", 16))
+CITYSCAPES_HW = (1024, 2048)
+EVAL_TOL = 1e-6
+
+
+def write_voc_split(root: str, name: str, split: str, count: int, seed: int) -> None:
+    """A VOC tree of ``count`` Cityscapes-sized JPEGs under ``root/data/name`` (the
+    layout ``register_builtin`` reads): a smooth random background and
+    ``GT_PER_IMAGE`` bright boxes of the recipe's 8 classes per image."""
+    import xml.etree.ElementTree as ET
+
+    from PIL import Image
+
+    from probabilisticteacher_torch.data.datasets import CLASS_NAMES_8
+
+    base = os.path.join(root, "data", name)
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    h, w = CITYSCAPES_HW
+    ids = []
+    for i in range(count):
+        fid = f"{name}_{i:04d}"
+        ids.append(fid)
+        img = np.kron(rng.randint(0, 90, (h // 16, w // 16, 3)),
+                      np.ones((16, 16, 1))).astype(np.uint8)
+        root_el = ET.Element("annotation")
+        size = ET.SubElement(root_el, "size")
+        ET.SubElement(size, "width").text = str(w)
+        ET.SubElement(size, "height").text = str(h)
+        for _ in range(GT_PER_IMAGE):
+            bw, bh = rng.randint(w // 80, w // 5), rng.randint(h // 40, h // 3)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(150, 256, 3)
+            obj = ET.SubElement(root_el, "object")
+            ET.SubElement(obj, "name").text = CLASS_NAMES_8[rng.randint(8)]
+            ET.SubElement(obj, "difficult").text = "0"
+            bb = ET.SubElement(obj, "bndbox")
+            for tag, v in (("xmin", x1 + 1), ("ymin", y1 + 1), ("xmax", x1 + bw),
+                           ("ymax", y1 + bh)):
+                ET.SubElement(bb, tag).text = str(v)
+        Image.fromarray(img).save(os.path.join(base, "JPEGImages", fid + ".jpg"), quality=90)
+        ET.ElementTree(root_el).write(os.path.join(base, "Annotations", fid + ".xml"))
+    with open(os.path.join(base, "ImageSets", "Main", split + ".txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+class StepClock:
+    """A trainer hook: host ms per iteration (each step ends in a synchronize, so
+    the time is the step's on the card plus the wait for its batch) and the
+    loader's ``data_time`` of the iteration."""
+
+    def __init__(self):
+        self.rows = []
+        self.trainer = None
+        self._t0 = 0.0
+
+    def before_train(self):
+        pass
+
+    def after_train(self):
+        pass
+
+    def before_step(self):
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+
+    def after_step(self):
+        torch.cuda.synchronize()
+        t = self.trainer
+        phase = "burnin" if t.iter < t.burn_up else "mutual"
+        self.rows.append({"iter": t.iter, "phase": phase,
+                          "ms": (time.perf_counter() - self._t0) * 1e3,
+                          "data_ms": t.last_data_time * 1e3})
+
+
+def _finite_results(res: dict) -> bool:
+    return "mAP50" in res and all(np.isfinite(v) for k, v in res.items()
+                                  if k in ("mAP50", "bbox/AP50"))
+
+
+def _same_results(a: dict, b: dict) -> float:
+    check(a.keys() == b.keys(), f"metric keys differ: {sorted(a)} vs {sorted(b)}")
+    return max(abs(a[k] - b[k]) for k in a)
+
+
+def phase_cli(dev) -> dict:
+    """The port's CLI on the card (see the module docstring, phase 8)."""
+    import shutil
+    import tempfile
+
+    from probabilisticteacher_torch import checkpoint as ckpt
+    from probabilisticteacher_torch import train_net
+    from probabilisticteacher_torch.data import loader as data_loader
+    from probabilisticteacher_torch.data import native
+    from probabilisticteacher_torch.engine import trainer as trainer_mod
+
+    work = tempfile.mkdtemp(prefix="pt_chip_smoke_")
+    try:
+        return _phase_cli(dev, work, ckpt, train_net, data_loader, native, trainer_mod)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_cli(dev, work, ckpt, train_net, data_loader, native, trainer_mod) -> dict:
+    t0 = time.perf_counter()
+    for i, (name, split, count) in enumerate(CLI_SPLITS):
+        write_voc_split(work, name, split, count, seed=20 + i)
+    os.environ["DETECTRON2_DATASETS"] = work
+    decoder = "native" if native.available() else "PIL"
+    log(f"[cli] wrote {sum(c for _, _, c in CLI_SPLITS)} {CITYSCAPES_HW[1]}x{CITYSCAPES_HW[0]} "
+        f"JPEGs in {time.perf_counter() - t0!r} s; host decoder: {decoder}")
+    if decoder != "native":
+        log("[cli] the native loader did not build on this host (g++ with libjpeg and libpng "
+            "headers is needed); the loader decodes with PIL")
+
+    out_dir = os.path.join(work, "output")
+    base = ["--config-file", CLI_CONFIG, "MODEL.VGG.PRETRAIN", "", "SEED", "0",
+            "UNSUPNET.BURN_UP_STEP", "2", "SOLVER.CHECKPOINT_PERIOD", "2",
+            "TEST.EVAL_PERIOD", "4", "OUTPUT_DIR", out_dir]
+    clock = StepClock()
+    trainers = []
+    evals = []
+    orig_hooks = trainer_mod.PTrainer.build_hooks
+    orig_resume = trainer_mod.PTrainer.resume_or_load
+    orig_eval = trainer_mod.evaluate_detections
+
+    def build_hooks(self):
+        return orig_hooks(self) + [clock]
+
+    def resume_or_load(self, resume=False):
+        orig_resume(self, resume)
+        trainers.append(self)
+        # what was loaded, before any step moves it
+        self.loaded = {"step": self.state.step,
+                       "student": {k: v.clone() for k, v in self.state.student.state_dict().items()},
+                       "teacher": {k: v.clone() for k, v in self.state.teacher.state_dict().items()},
+                       "optimizer": copy.deepcopy(self.state.optimizer.state_dict())}
+
+    def timed_eval(model, loader, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = orig_eval(model, loader, *args, **kwargs)
+        torch.cuda.synchronize()
+        evals.append({"images": len(loader), "s": time.perf_counter() - start})
+        return res
+
+    trainer_mod.PTrainer.build_hooks = build_hooks
+    trainer_mod.PTrainer.resume_or_load = resume_or_load
+    trainer_mod.evaluate_detections = timed_eval
+    try:
+        res1, c_train = drive_cli("cli_train", train_net, base + ["SOLVER.MAX_ITER", "4"])
+        run1 = trainers[-1]
+        rows1 = list(clock.rows)
+        clock.rows.clear()
+        check(run1.state.step == 4 and rows1[-1]["iter"] == 3, "the CLI did not run 4 steps")
+        check([r["phase"] for r in rows1] == ["burnin"] * 2 + ["mutual"] * 2,
+              "the CLI did not run 2 burn-in and 2 mutual steps")
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        written = sorted({r["iteration"] for r in recs})
+        losses = {k: v for r in recs for k, v in r.items() if k.startswith(("loss", "total"))}
+        log(f"[cli] metrics.json iterations {written}; last losses {json.dumps(losses)}")
+        check(written == [0, 3], f"metrics.json holds iterations {written}, not [0, 3]")
+        check(losses and all(np.isfinite(v) for v in losses.values()), "losses not finite")
+        for it in (2, 4):
+            check(os.path.isfile(os.path.join(out_dir, f"model_{it:07d}")),
+                  f"no checkpoint at iteration {it}")
+        check(ckpt.latest_checkpoint(out_dir) == os.path.join(out_dir, "model_0000004"),
+              "last_checkpoint does not name model_0000004")
+        log(f"[cli] final teacher eval {json.dumps(res1)}")
+        check(_finite_results(res1), "the final eval gave no finite mAP")
+        hook = run1.storage.latest()
+        student4 = {k[:-len("_student")]: v for k, v in hook.items() if k.endswith("_student")}
+        teacher4 = {k: hook[k] for k in res1}
+        err_t = _same_results(teacher4, res1)
+        log(f"[cli] EvalHook teacher at iteration 4 vs the final eval (same weights): "
+            f"max |diff| {err_t!r}")
+        check(err_t <= EVAL_TOL, "the final eval differs from the EvalHook's teacher eval")
+
+        res2, c_resume = drive_cli("cli_resume", train_net,
+                                   ["--resume"] + base + ["SOLVER.MAX_ITER", "6"])
+        run2 = trainers[-1]
+        saved = torch.load(os.path.join(out_dir, "model_0000004"), map_location="cpu",
+                           weights_only=True)
+        loaded = run2.loaded
+        check(loaded["step"] == 4 and run2.start_iter == 4, "--resume did not start at 4")
+        for part in ("student", "teacher"):
+            check(all(torch.equal(v.cpu(), saved[part][k]) for k, v in loaded[part].items()),
+                  f"the resumed {part} differs from the saved one")
+        mom_saved, mom = saved["optimizer"]["state"], loaded["optimizer"]["state"]
+        check(mom.keys() == mom_saved.keys() and len(mom) > 0 and all(
+            torch.equal(mom[i]["trace"].cpu(), mom_saved[i]["trace"]) for i in mom),
+            "the resumed momentum differs from the saved one")
+        check(loaded["optimizer"]["count"] == saved["optimizer"]["count"] == 4,
+              "the resumed optimizer count is not 4")
+        rows2 = list(clock.rows)
+        check(run2.state.step == 6 and [r["iter"] for r in rows2] == [4, 5]
+              and all(r["phase"] == "mutual" for r in rows2),
+              "the resumed run did not take mutual steps 4 and 5")
+        check(_finite_results(res2), "the resumed run's eval gave no finite mAP")
+        log("[cli] --resume: step 4, teacher, student and momentum equal the saved ones bit "
+            f"for bit; steps 4-5 ran; eval {json.dumps(res2)}")
+
+        eval_dir = os.path.join(work, "eval_only")
+        res3, c_eval = drive_cli("cli_eval_only", train_net, [
+            "--config-file", CLI_CONFIG, "--eval-only", "MODEL.VGG.PRETRAIN", "",
+            "MODEL.WEIGHTS", os.path.join(out_dir, "model_0000004"), "OUTPUT_DIR", eval_dir],
+            required=INFERENCE_KERNELS)
+        err_s = _same_results(res3, student4)
+        log(f"[cli] --eval-only of model_0000004 (the student, as the root train_net.py) "
+            f"vs the EvalHook's student eval at iteration 4: max |diff| {err_s!r}")
+        check(err_s <= EVAL_TOL, "--eval-only differs from the trainer's eval of the same weights")
+    finally:
+        trainer_mod.PTrainer.build_hooks = orig_hooks
+        trainer_mod.PTrainer.resume_or_load = orig_resume
+        trainer_mod.evaluate_detections = orig_eval
+
+    # Predictor on one val image against detect on that image's canvas
+    cfg = run2.cfg
+    pred = Predictor(cfg, checkpoint_path=os.path.join(out_dir, "model_0000006"), device=dev)
+    from probabilisticteacher_torch.data.datasets import DatasetCatalog
+
+    rec = DatasetCatalog.get("VOC2007_foggyval")[0]
+    pil_cfg = cfg.clone()   # the Predictor decodes and resizes with PIL: so does this canvas
+    pil_cfg.defrost()
+    pil_cfg.DATALOADER.NATIVE = False
+    mapped = data_loader.Mapper(pil_cfg, is_train=False)(rec, np.random.default_rng(0))
+    canvas = ImageBatch(torch.from_numpy(mapped["image"][None]).to(dev),
+                        torch.from_numpy(mapped["image_hw"][None]).to(dev))
+    with torch.inference_mode():
+        dets = run2.state.teacher.detect(canvas)
+    v = dets.valid[0].cpu().numpy()
+    want_boxes = dets.boxes[0].cpu().numpy()[v] / float(mapped["scale"])
+    got = pred(data_loader.read_image(rec["file_name"], cfg.INPUT.FORMAT))
+    check(len(got["boxes"]) == len(want_boxes) > 0, "Predictor and detect keep different counts")
+    box_err = float(np.abs(got["boxes"] - want_boxes).max())
+    log(f"[cli] Predictor(checkpoint_path=model_0000006) vs the teacher's detect on the "
+        f"image's canvas: {len(want_boxes)} boxes, max |diff| {box_err!r}")
+    check(box_err <= 1e-4 and np.array_equal(got["classes"], dets.classes[0].cpu().numpy()[v]),
+          "Predictor differs from detect on the same image")
+
+    steady = rows1[1:] + rows2
+    data_share = sum(r["data_ms"] for r in steady) / sum(r["ms"] for r in steady)
+    eval_ips = [e["images"] / e["s"] for e in evals]
+    out = {"decoder": decoder, "steps": rows1 + rows2, "data_wait_share": data_share,
+           "eval": evals, "eval_img_per_s": eval_ips, "final_eval": res1,
+           "resumed_eval": res2, "eval_only": res3}
+    log(f"[cli] ms per iteration with the loader in the loop (host clock, each step "
+        f"synchronized): {json.dumps(rows1 + rows2)}")
+    log(f"[cli] share of the step waiting on data (iterations 1-5): {data_share!r}; eval "
+        f"images/s {eval_ips!r} (batch {cfg.TEST.IMS_PER_BATCH}); {card_line()}")
+    return {"out": out, "launches": {"cli_train": c_train, "cli_resume": c_resume,
+                                     "cli_eval_only": c_eval},
+            "calls": {"cli_train": 1, "cli_resume": 1, "cli_eval_only": 1}}
+
+
+def drive_cli(name: str, train_net, argv, required=KERNELS):
+    """Run ``train_net.main`` once with the launch counts zeroed just before."""
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = train_net.main(train_net.parse_args(argv))
+    counts = {k.symbol: k.launches for k in KERNELS}
+    log(f"[path] {name}: {time.perf_counter() - t0!r} s; launches {counts}")
+    for k in required:
+        check(counts[k.symbol] > 0, f"{k.symbol} was not launched on the {name} path")
+    return res, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -717,9 +1012,10 @@ def main() -> int:
     phase_reference(dev)
     tr = phase_train(dev)
     phase_train_reference(dev)
+    cli = phase_cli(dev)
 
-    launches = {**sl["launches"], **tr["launches"]}
-    calls = {**sl["calls"], **tr["calls"]}
+    launches = {**sl["launches"], **tr["launches"], **cli["launches"]}
+    calls = {**sl["calls"], **tr["calls"], **cli["calls"]}
     for entry, k in ((k_roi, roi_align_cuda.KERNEL), (k_bwd, roi_align_cuda.BWD_KERNEL),
                      (k_nms, nms_cuda.KERNEL)):
         per = {path: c[k.symbol] for path, c in launches.items()}
@@ -727,7 +1023,7 @@ def main() -> int:
         entry["launches_by_path"] = per
         entry["calls_by_path"] = calls
     log(json.dumps({"slice": {k: v for k, v in sl.items() if k not in ("launches", "calls")},
-                    "train": tr["out"], "build_s": build_s,
+                    "train": tr["out"], "cli": cli["out"], "build_s": build_s,
                     "total_s": time.perf_counter() - t0}))
     log("[kernels] library_ms is null for all three: core PyTorch has no ROIAlign, ROIAlign "
         "backward or NMS call (torchvision is not installed), so no single library call "

@@ -5,62 +5,61 @@ Takes a raw BGR uint8 numpy image, applies the test-time resize, runs
 original-image coordinates. Usage:
 
     from probabilisticteacher_torch.predictor import Predictor
-    pred = Predictor(cfg, jax_params=params_np)   # or state_dict=...
+    pred = Predictor(cfg, checkpoint_path="output/c2f/model_0030000")
     out = pred(image_bgr)   # {"boxes", "scores", "classes"}
-
-Checkpoint files (Orbax, detectron2 ``.pth``) are read by a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .config import Arch
+from .data.loader import resize_shortest_edge
 from .modeling.detector import PTDetector
 from .structures import ImageBatch
 from .weights import params_from_jax
 
 
-def resize_shortest_edge(img: np.ndarray, boxes: np.ndarray, short: int,
-                         max_size: int) -> Tuple[np.ndarray, np.ndarray, float]:
-    """detectron2 ResizeShortestEdge: scale so min side == short, cap long side.
-
-    PIL is imported only when the size actually changes.
-    """
-    h, w = img.shape[:2]
-    scale = short / min(h, w)
-    if max(h, w) * scale > max_size:
-        scale = max_size / max(h, w)
-    nh, nw = int(round(h * scale)), int(round(w * scale))
-    if (nh, nw) != (h, w):
-        from PIL import Image
-
-        img = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR), dtype=np.uint8)
-    if boxes.size:
-        boxes = boxes * np.array([nw / w, nh / h, nw / w, nh / h], np.float32)
-    return img, boxes, scale
-
-
 class Predictor:
-    """Weights come from a port ``state_dict``, a JAX param tree of numpy arrays
-    (through :func:`weights.params_from_jax`), or, when neither is given, the
-    seeded :meth:`PTDetector.init`. Runs on ``device``: the card unless the
-    caller names another."""
+    """Weights come from a checkpoint file (``checkpoint_path``: the teacher by
+    default, as the headline metric tracks the teacher, ``trainer.py:529-542``; a
+    detectron2 ``.pth``/``.pkl`` goes through ``d2_import``), a port ``state_dict``,
+    a JAX param tree of numpy arrays (through :func:`weights.params_from_jax`), or,
+    when none is given, the seeded :meth:`PTDetector.init`. Runs on ``device``:
+    the card unless the caller names another."""
 
-    def __init__(self, cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 jax_params: Optional[Mapping[str, Any]] = None, device=None):
+    def __init__(self, cfg, checkpoint_path: Optional[str] = None,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 jax_params: Optional[Mapping[str, Any]] = None, use_teacher: bool = True,
+                 device=None):
         self.cfg = cfg
         self.arch = Arch.from_cfg(cfg)
         self.detector = PTDetector(self.arch, device=device).eval()
         if jax_params is not None:
             state_dict = params_from_jax(jax_params, self.arch)
-        if state_dict is None:
-            self.detector.init()
-        else:
+        if state_dict is not None:
             self.detector.load_state_dict(state_dict)
+        elif checkpoint_path:
+            self.detector.load_state_dict(self._checkpoint_weights(checkpoint_path, use_teacher))
+        else:
+            self.detector.init()
+
+    def _checkpoint_weights(self, path: str, use_teacher: bool) -> Dict[str, torch.Tensor]:
+        from .checkpoint import load_weights
+        from .d2_import import is_d2_checkpoint, load_detectron2_weights
+        from .engine.steps import TrainState
+
+        student = self.detector
+        teacher = PTDetector(self.arch, device=student.device).eval()
+        state = TrainState(0, student, teacher, None)
+        if is_d2_checkpoint(path):
+            load_detectron2_weights(path, state, self.arch.pooler_resolution)
+        else:
+            load_weights(path, state)
+        return (teacher if use_teacher else student).state_dict()
 
     def __call__(self, image_bgr: np.ndarray) -> Dict[str, np.ndarray]:
         """image_bgr: (H, W, 3) uint8 -> detections in original coordinates."""
@@ -75,7 +74,8 @@ class Predictor:
         dev = self.detector.device
         batch = ImageBatch(torch.from_numpy(canvas[None]).to(dev),
                            torch.tensor([[hh, ww]], dtype=torch.float32, device=dev))
-        dets = self.detector.detect(batch)
+        with torch.inference_mode():
+            dets = self.detector.detect(batch)
         v = dets.valid[0].cpu().numpy()
         return {
             "boxes": dets.boxes[0].cpu().numpy()[v] / scale,

@@ -139,6 +139,18 @@ class ClippedSGD(torch.optim.Optimizer):
                 p.add_(upd * -lr)
         self.count += 1
 
+    def state_dict(self):
+        """The momentum traces and hyperparameters, plus the update count that the
+        schedule reads, so that a resumed run continues the schedule."""
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
 
 def build_optimizer(cfg, model: nn.Module) -> ClippedSGD:
     """The optimizer of ``cfg.SOLVER`` over ``model``'s trainable parameters."""

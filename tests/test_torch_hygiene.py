@@ -3,8 +3,8 @@
 - every module of ``probabilisticteacher_torch`` and every import of
   ``chip_smoke.py`` loads without JAX, flax or the JAX package (checked in a fresh
   interpreter, since this test process has JAX loaded);
-- entry points default to the card and raise when there is none, unless the
-  caller asks for the CPU;
+- entry points (detector, Predictor, trainer, CLI) default to the card and raise
+  when there is none, unless the caller asks for the CPU;
 - approximate RPN NMS modes that are not ported raise instead of running the
   exact NMS under their name.
 """
@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from probabilisticteacher_torch import config as tcfg
+from probabilisticteacher_torch import train_net
+from probabilisticteacher_torch.engine.trainer import PTrainer, trainer_device
 from probabilisticteacher_torch.modeling.detector import PTDetector
 from probabilisticteacher_torch.predictor import Predictor
 from probabilisticteacher_torch.structures import resolve_device
@@ -43,10 +45,10 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK.format(repo=REPO)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 27   # every module of both slices was imported
+    assert int(out.stdout.split()[-1]) >= 40   # every module of the three slices was imported
 
 
-def test_card_is_the_default_and_its_absence_raises(monkeypatch):
+def test_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -54,6 +56,16 @@ def test_card_is_the_default_and_its_absence_raises(monkeypatch):
         PTDetector(tcfg.Arch(vgg_depth=11, fc_dim=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(tcfg.get_cfg())
+    # the trainer and the CLI: MODEL.DEVICE keeps the config's default "tpu", which
+    # the port reads as the card; only "cpu" is the CPU
+    cfg = tcfg.get_cfg()
+    cfg.OUTPUT_DIR = str(tmp_path / "out")
+    assert cfg.MODEL.DEVICE == "tpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PTrainer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_net.main(train_net.parse_args(["OUTPUT_DIR", str(tmp_path / "cli")]))
+    assert trainer_device("cpu") == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     assert PTDetector(tcfg.Arch(vgg_depth=11, fc_dim=8), device="cpu").device.type == "cpu"
 
