@@ -10,7 +10,9 @@
   names and layouts, as ``tests/test_d2_import.py`` builds them, learnable anchors
   included) equals ``params_from_jax`` of JAX's import bit for bit, and ``detect``
   with the imported weights equals ``detect`` with those weights assigned directly
-  (the JAX test's check; ``tests/test_torch_detector.py`` holds ``detect`` to JAX);
+  (the JAX test's check); a checkpoint written from JAX-initialised weights gives
+  JAX's detections through both importers (the limits of
+  ``tests/test_torch_detector.py``);
 - ``Predictor(checkpoint_path=...)`` takes the teacher unless asked for the student.
 """
 
@@ -28,6 +30,7 @@ from probabilisticteacher_tpu.d2_import import load_detectron2_weights as jload_
 from probabilisticteacher_tpu.engine.steps import TrainState as JTrainState
 from probabilisticteacher_tpu.modeling.detector import Arch as JArch
 from probabilisticteacher_tpu.modeling.detector import PTDetector as JDetector
+from probabilisticteacher_tpu.structures import ImageBatch as JImageBatch
 from probabilisticteacher_torch import checkpoint as ckpt
 from probabilisticteacher_torch import d2_import
 from probabilisticteacher_torch.config import Arch, get_cfg
@@ -271,6 +274,76 @@ def test_d2_import_matches_jax(ensemble):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert not torch.equal(got.scores, base.scores)
+
+
+def _jax_to_d2(params) -> dict:
+    """A JAX param tree written back in detectron2's names and layouts (the inverse
+    of JAX's ``d2_to_params``)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd = {}
+    for name, p in params["backbone"].items():
+        b, c = name[len("block"):].split("_conv")
+        sd[f"backbone.vgg_block{b}.0.conv{c}.weight"] = t(p["kernel"].transpose(3, 2, 0, 1))
+        sd[f"backbone.vgg_block{b}.0.conv{c}.bias"] = t(p["bias"])
+    for ours, theirs in (("conv", "conv"), ("objectness", "objectness_logits"),
+                         ("deltas", "anchor_deltas")):
+        p = params["rpn_head"][ours]
+        sd[f"proposal_generator.rpn_head.{theirs}.weight"] = t(p["kernel"].transpose(3, 2, 0, 1))
+        sd[f"proposal_generator.rpn_head.{theirs}.bias"] = t(p["bias"])
+    for name, p in params["box_head"].items():
+        k = p["kernel"]
+        if name == "fc1":                    # (P*P*C, F) HWC rows -> (F, C*P*P)
+            q = 7
+            k = k.reshape(q, q, -1, k.shape[1]).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
+        else:
+            k = k.T
+        sd[f"roi_heads.box_head.{name}.weight"] = t(k)
+        sd[f"roi_heads.box_head.{name}.bias"] = t(p["bias"])
+    for name, p in params["predictor"].items():
+        sd[f"roi_heads.box_predictor.{name}.weight"] = t(p["kernel"].T)
+        sd[f"roi_heads.box_predictor.{name}.bias"] = t(p["bias"])
+    sd["proposal_generator.anchor_generator.anchor_0"] = t(params["anchor_wh"])
+    return sd
+
+
+def test_d2_import_detect_matches_jax(tmp_path):
+    """A detectron2 checkpoint written from JAX-initialised weights (objectness and
+    class weights scaled up as in ``tests/test_torch_detector.py``) gives the same
+    detections through both importers: masks and classes equal, boxes within 1e-3,
+    scores within 1e-4 (that test's limits)."""
+    arch_j, arch_t = JArch(**TINY), Arch(**TINY)
+    jdet = JDetector(arch_j)
+    params = jax.tree.map(np.asarray, jdet.init(jax.random.key(1), (64, 96)))
+    params["rpn_head"]["objectness"]["kernel"] = params["rpn_head"]["objectness"]["kernel"] * 30
+    params["predictor"]["cls_score"]["kernel"] = params["predictor"]["cls_score"]["kernel"] * 40
+    params["predictor"]["bbox_pred"]["kernel"] = params["predictor"]["bbox_pred"]["kernel"] * 10
+    path = str(tmp_path / "student.pth")
+    torch.save({"model": _jax_to_d2(params)}, path)
+    init = jdet.init(jax.random.key(0), (64, 96))
+    jstate = jload_d2(path, JTrainState(jnp.asarray(0), init, jax.tree.map(jnp.copy, init), ()))
+    jax.tree.map(np.testing.assert_array_equal, jax.tree.map(np.asarray, jstate.student), params)
+    state = TrainState(0, PTDetector(arch_t, device="cpu"), PTDetector(arch_t, device="cpu"),
+                       None)
+    d2_import.load_detectron2_weights(path, state)
+
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 255, (2, 64, 96, 3)).astype(np.float32)
+    img[:, 20:44, 30:70] = rng.randint(0, 255, 3)    # a flat object
+    hw = np.array([(64, 96), (50, 80)], np.float32)
+    img[1, 50:] = 0
+    img[1, :, 80:] = 0
+    want = jax.jit(jdet.detect)(jstate.teacher, JImageBatch(jnp.asarray(img), jnp.asarray(hw)))
+    with torch.no_grad():
+        got = state.teacher.detect(ImageBatch(torch.from_numpy(img), torch.from_numpy(hw)))
+    v = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), v)
+    assert v.any()
+    np.testing.assert_array_equal(got.classes.numpy()[v], np.asarray(want.classes)[v])
+    np.testing.assert_allclose(got.boxes.numpy()[v], np.asarray(want.boxes)[v], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got.scores.numpy()[v], np.asarray(want.scores)[v], rtol=0,
+                               atol=1e-4)
 
 
 def test_d2_fc1_flatten_matches_torch():
