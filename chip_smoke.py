@@ -12,11 +12,13 @@ Phases (each failure exits non-zero; none is caught and passed over):
    the plain version rounds its interpolation matrices and intermediate to bf16,
    as the JAX package does) and f32 (1e-5 * max|F|), with boxes that run off the
    map and degenerate boxes; then timed, bf16, at the train step's shapes too:
-   the student's (48, 512) and the teacher's (16, 2000) ROIs;
+   the student's (48, 512) and the teacher's (16, 2000) ROIs, and the student's per
+   rank of a 2-rank data-parallel step, (24, 512);
 3. NMS kernel vs its plain version at the inference shapes, 8 x 12000 -> 2000
    @ 0.7 and class-aware 8 x 16000 -> 100 @ 0.5, and at the train step's own:
    the student's RPN 48 x 12000 -> 2000, the teacher's RPN 16 x 12000 -> 2000
-   and its class-aware 16 x 16000 -> 100; clustered boxes that fill the RPN's
+   and its class-aware 16 x 16000 -> 100, and the student's RPN per rank of a
+   2-rank step, 24 x 12000 -> 2000; clustered boxes that fill the RPN's
    budget, bf16-quantised (tied) scores, duplicate boxes and chains: indices and
    valid masks exactly equal;
 4. the inference slice at full width (VGG16, 8 classes, learnable anchors, AMP
@@ -27,7 +29,8 @@ Phases (each failure exits non-zero; none is caught and passed over):
    plain path in f32 on a small input;
 5. ROIAlign backward kernel vs its plain version at the train step's shapes,
    the student pass of a mutual step, (48, 512) ROIs on a (48, 38, 84, 512) map,
-   and of a burn-in step, (32, 512), bf16 (2e-2 * max|dF|) and f32
+   and of a burn-in step, (32, 512), and both per rank of a 2-rank step,
+   (24, 512) and (16, 512), bf16 (2e-2 * max|dF|) and f32
    (1e-5 * max|dF|), with the edge and degenerate boxes of phase 2 and zero
    gradient rows; two runs of the kernel must give the same dF bit for bit; each
    shape's time, bound and ``design_bytes`` (g read again by a second tile);
@@ -64,10 +67,32 @@ Phases (each failure exits non-zero; none is caught and passed over):
    Prints the host decoder, ms per iteration with the loader in the loop, the
    loader's ``data_time``, the share of the step waiting on data and eval
    images/s;
-9. one JSON line of the kernels' launches, error, time (CUDA events), bound and
-   plain-version time. No kernel has one PyTorch call that computes the same
-   function (core PyTorch has no ROIAlign, ROIAlign backward or NMS), so
-   ``library_ms`` is null.
+9. data parallel (``parallel/mesh.py``): (a) two ranks share the card over gloo
+   (NCCL refuses two ranks on one device), started with ``spawn``, joined with a
+   time limit and killed on failure. In f32 with TF32 off, ``burnin_step`` and
+   ``mutual_step``, each from the seeded weights, at the recipe's full width
+   (global 16 + 16 images, 8 + 8 per rank; class and objectness weights scaled
+   and proposals under 2 px dropped, as in phase 7) against one process over the
+   global batch: metrics within 1e-4
+   relative, each summed gradient within 1e-3 of its L2 norm (phase 7's limits).
+   Then 3 bf16 mutual steps per rank: finite, the replicas bit-identical after each
+   step; ms per step per rank and of the gradient all-reduce (the two ranks share
+   the card, so this is no scaling figure). With two or more cards, the same
+   comparison over NCCL across two cards. (b) the CLI with ``--num-gpus
+   <device count>`` on phase 8's tree: on one card a world of one through the
+   launch path, in this process; it prints the world sizes and backends it ran;
+10. the opt-in levers at full width (bf16, 8 images for inference, 16 + 16 for a
+   step), under each ``MODEL.RPN.NMS_IMPL`` of greedy, maxpool, maxpool_train and
+   hybrid: ``predict_proposals`` (test and train budgets: valid, finite proposals
+   inside their image; the NMS kernel launched exactly where the lever runs the
+   exact NMS, on the hybrid's candidates too), ``detect``, ``pseudo_labels`` and one
+   ``mutual_step``, with ms per call and K3's device ms from ``torch.profiler``;
+   then one mutual step with ``MODEL.BACKBONE.REMAT`` off and on: gradients within
+   1e-3 of their L2 norm, a lower peak memory with REMAT on, and both times;
+11. one JSON line of the kernels' launches (by path, the phases 9-10 paths
+   included), error, time (CUDA events), bound and plain-version time. No kernel
+   has one PyTorch call that computes the same function (core PyTorch has no
+   ROIAlign, ROIAlign backward or NMS), so ``library_ms`` is null.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -107,18 +132,23 @@ N, CANVAS, FEAT = 8, (608, 1344), (38, 84, 512)
 TRAIN_N = 16                   # IMG_PER_BATCH_LABEL = IMG_PER_BATCH_UNLABEL of the recipe
 # ROIAlign backward (label, images, ROIs per image): the fused student pass of a
 # mutual step (2 x 16 labeled views + 16 unlabeled images) and of a burn-in step
-BWD_CASES = (("student", 48, 512), ("burnin", 32, 512))
+# and the same passes per rank of a data-parallel step over 2 ranks (8 + 8 images each)
+BWD_CASES = (("student", 48, 512), ("burnin", 32, 512), ("student_rank", 24, 512),
+             ("burnin_rank", 16, 512))
 # ROIAlign forward (label, images, ROIs per image) beside the inference shape: the
-# student pass and the teacher pass of a mutual step
-FWD_STEP_CASES = (("student", 48, 512), ("teacher", 16, 2000))
+# student pass and the teacher pass of a mutual step, and the student pass per rank
+# over 2 ranks (the teacher's per rank, 8 x 2000, is the inference shape)
+FWD_STEP_CASES = (("student", 48, 512), ("teacher", 16, 2000), ("student_rank", 24, 512))
 GT_PER_IMAGE = 20
 # (label, images, K, max_keep, IoU threshold, classes): the RPN NMS of
 # pseudo_labels and the class-aware NMS of its ROI inference at batch 8, then the
 # three calls of one mutual step: the student's RPN (2 x 16 labeled views + 16
-# unlabeled images), the teacher's RPN and the teacher's class-aware NMS
+# unlabeled images), the teacher's RPN and the teacher's class-aware NMS; per rank
+# over 2 ranks the student's RPN is 24 images (the teacher's two are the first two)
 NMS_CASES = (("rpn", 8, 12000, 2000, 0.7, 0), ("class", 8, 16000, 100, 0.5, 8),
              ("rpn_student", 48, 12000, 2000, 0.7, 0), ("rpn_teacher", 16, 12000, 2000, 0.7, 0),
-             ("class_teacher", 16, 16000, 100, 0.5, 8))
+             ("class_teacher", 16, 16000, 100, 0.5, 8),
+             ("rpn_student_rank", 24, 12000, 2000, 0.7, 0))
 PREDICTOR_HW = (600, 1200)     # resizes to itself: no PIL
 IMAGE_HW = ((600, 1200), (608, 1344), (600, 800), (450, 1344),
             (608, 1000), (500, 1100), (600, 1333), (333, 600))
@@ -805,8 +835,9 @@ def _same_results(a: dict, b: dict) -> float:
     return max(abs(a[k] - b[k]) for k in a)
 
 
-def phase_cli(dev) -> dict:
-    """The port's CLI on the card (see the module docstring, phase 8)."""
+def phase_cli(dev) -> tuple:
+    """The port's CLI on the card (see the module docstring, phase 8), then the CLI's
+    data-parallel launch on the same tree (phase 9 (b))."""
     import shutil
     import tempfile
 
@@ -818,7 +849,8 @@ def phase_cli(dev) -> dict:
 
     work = tempfile.mkdtemp(prefix="pt_chip_smoke_")
     try:
-        return _phase_cli(dev, work, ckpt, train_net, data_loader, native, trainer_mod)
+        cli = _phase_cli(dev, work, ckpt, train_net, data_loader, native, trainer_mod)
+        return cli, phase_dp_cli(dev, train_net, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -989,6 +1021,410 @@ def drive_cli(name: str, train_net, argv, required=KERNELS):
     return res, counts
 
 
+# --------------------------------------------------------------------- phase 9
+DP_WORLD = 2
+DP_TIMEOUT_S = 420
+DP_BF16_STEPS = 3
+
+
+def dp_cfg(amp: bool, burn_up: int):
+    """The recipe at full width (16 + 16 images, 608 x 1344), with proposals under
+    2 px dropped as in phase 7."""
+    cfg = train_cfg()
+    cfg.merge_from_list(["SOLVER.AMP.ENABLED", str(amp), "UNSUPNET.BURN_UP_STEP", str(burn_up),
+                         "MODEL.PROPOSAL_GENERATOR.MIN_SIZE", "2.0"])
+    return cfg
+
+
+def dp_student(cfg, dev):
+    """Seeded weights, with class and objectness weights scaled up as in phase 7."""
+    student = PTDetector(Arch.from_cfg(cfg), device=dev)
+    student.init(seed=0)
+    with torch.no_grad():
+        student.predictor.cls_score.weight.mul_(4)
+        student.rpn_head.objectness.weight.mul_(10)
+    return student
+
+
+def dp_batches(dev):
+    gen = torch.Generator().manual_seed(8)
+    limg, lgt = train_batch(gen, TRAIN_N, dev, labeled=True)
+    return limg, lgt, train_batch(gen, TRAIN_N, dev, labeled=False)
+
+
+def dp_f32_steps(dev, mesh) -> dict:
+    """In f32 with TF32 off, a ``burnin_step`` and, from the same seeded weights, a
+    ``mutual_step`` (the boundary copy), over the global batch (a world of one) or
+    this rank's share of it: the metrics summed over the ranks and every parameter's
+    summed gradient of each step.
+
+    Each step starts from the seeded weights, not the mutual step from the burn-in
+    step's update: two runs whose gradients were summed in another order hold
+    weights that differ in their last bits, and at random weights a teacher whose
+    boxes move by an ulp flips ties among the RPN matcher's best anchors, which
+    moves the unsupervised RPN loss by percents.
+    """
+    from probabilisticteacher_torch.parallel.mesh import all_reduce_sum, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    limg, lgt, uimg = shard_batch(mesh, dp_batches(dev))
+    stage = "grad_all_reduce" if mesh.distributed else "backward"
+    out = {"metrics": [], "grads": [], "launches": []}
+    for burn_up in (1, 0):                    # step 0: burn-in, then mutual (the boundary)
+        cfg = dp_cfg(False, burn_up)
+        student = dp_student(cfg, dev)
+        state = create_train_state(student, build_optimizer(cfg, student))
+        burnin, mutual = make_train_steps(cfg, student, mesh)
+        draws = torch.Generator(device=dev).manual_seed(9)
+
+        def mark(name):
+            if name == stage:
+                out["grads"].append({k: p.grad.detach().float().cpu() for k, p in
+                                     state.student.named_parameters() if p.grad is not None})
+
+        for k in KERNELS:
+            k.launches = 0
+        if burn_up:
+            state, m = burnin(state, limg, lgt, draws, mark)
+        else:
+            state, m = mutual(state, limg, lgt, uimg, draws, mark)
+        out["launches"].append({k.symbol: k.launches for k in KERNELS})
+        names = sorted(m)
+        total = all_reduce_sum(mesh, torch.stack([m[k].float() for k in names]))
+        out["metrics"].append(dict(zip(names, total.tolist())))
+        del state, student
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def dp_bf16_steps(dev, mesh) -> dict:
+    """``DP_BF16_STEPS`` mutual steps in bf16 on this rank's share: metrics finite,
+    the replicas bit-identical after each step (rank 0's parameters broadcast and
+    compared), host ms per step and of the gradient all-reduce."""
+    import torch.distributed as dist
+
+    from probabilisticteacher_torch.parallel.mesh import shard_batch
+
+    cfg = dp_cfg(True, 0)
+    student = dp_student(cfg, dev)
+    state = create_train_state(student, build_optimizer(cfg, student))
+    _, mutual = make_train_steps(cfg, student, mesh)
+    limg, lgt, uimg = shard_batch(mesh, dp_batches(dev))
+    draws = torch.Generator(device=dev).manual_seed(9)
+    t_red = {}
+
+    def mark(name):
+        if name in ("backward", "grad_all_reduce"):
+            torch.cuda.synchronize()
+            t_red[name] = time.perf_counter()
+
+    step_ms, reduce_ms, identical, finite = [], [], [], []
+    for k in KERNELS:
+        k.launches = 0
+    for _ in range(DP_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = mutual(state, limg, lgt, uimg, draws, mark)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms.append((t_red["grad_all_reduce"] - t_red["backward"]) * 1e3)
+        finite.append(_finite(m))
+        flat = torch.cat([p.detach().reshape(-1).float() for p in state.student.parameters()])
+        ref = flat.clone()
+        dist.broadcast(ref, 0, group=mesh.group)
+        identical.append(bool(torch.equal(flat, ref)))
+    counts = {k.symbol: k.launches for k in KERNELS}
+    del state, student
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "grad_all_reduce_ms": reduce_ms, "identical": identical,
+            "finite": finite, "launches": counts}
+
+
+def dp_device(rank: int, shared_card: bool) -> torch.device:
+    return torch.device("cuda", 0 if shared_card else rank)
+
+
+def dp_rank(rank: int, port: int, backend: str, shared_card: bool, out_dir: str) -> None:
+    """One spawned rank: joins the group, runs the f32 equivalence steps and (on a
+    shared card) the bf16 steps, and writes what it saw (rank 0: with the gradients)."""
+    from probabilisticteacher_torch.parallel.mesh import make_mesh
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = dp_device(rank, shared_card)
+    mesh = make_mesh(dev, backend=backend)
+    out = {"world": mesh.world_size, "backend": mesh.backend, "device": str(mesh.device),
+           "f32": dp_f32_steps(dev, mesh)}
+    if rank != 0:
+        out["f32"].pop("grads")
+    if shared_card:
+        out["bf16"] = dp_bf16_steps(dev, mesh)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_dp_ranks(backend: str, shared_card: bool) -> list:
+    """Spawn the ranks (``spawn``: this process has initialized CUDA), join each with
+    a time limit, and kill them all if one fails or hangs."""
+    import multiprocessing as mp
+    import shutil
+    import socket
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="pt_chip_dp_")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, port, backend, shared_card, out_dir))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1))
+        codes = [p.exitcode for p in procs]
+        check(all(c == 0 for c in codes), f"data-parallel ranks ended with {codes} "
+                                           f"(None: still running after {DP_TIMEOUT_S} s)")
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(DP_WORLD)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def dp_compare(label: str, ref: dict, ranks: list) -> dict:
+    """The ranks' f32 steps against one process over the global batch: metrics within
+    ``TRAIN_REF_LOSS_TOL`` relative, each summed gradient within ``TRAIN_REF_GRAD_TOL``
+    of its L2 norm (phase 7's limits)."""
+    got = ranks[0]["f32"]
+    check(all(r["f32"]["metrics"] == got["metrics"] for r in ranks),
+          f"{label}: the ranks' summed metrics differ")
+    loss_err, grad_err, worst = 0.0, 0.0, None
+    for step, (w, g) in enumerate(zip(ref["metrics"], got["metrics"])):
+        check(w.keys() == g.keys(), f"{label}: metric names differ")
+        loss_err = max([loss_err] + [abs(g[k] - v) / max(abs(v), 1e-6) for k, v in w.items()])
+        # the all-reduce gives a parameter with no gradient (anchor_wh in burn-in) a zero one
+        extra = got["grads"][step].keys() - ref["grads"][step].keys()
+        check(ref["grads"][step].keys() <= got["grads"][step].keys()
+              and all(not got["grads"][step][k].any() for k in extra),
+              f"{label}: gradients of different parameters")
+        for k, v in ref["grads"][step].items():
+            e = ((got["grads"][step][k] - v).norm() / v.norm().clamp(min=1e-30)).item()
+            if e > grad_err:
+                grad_err, worst = e, f"step {step} {k}"
+    log(f"[dp] {label}: {len(ranks)} ranks ({ranks[0]['backend']}, {ranks[0]['device']}, "
+        f"{ranks[1]['device']}) vs one process over the global batch, f32: max relative "
+        f"metric error {loss_err!r} (limit {TRAIN_REF_LOSS_TOL}); worst gradient error "
+        f"{grad_err!r} of its L2 norm ({worst}; limit {TRAIN_REF_GRAD_TOL})")
+    log(f"[dp] {label}: metrics after the mutual step {json.dumps(got['metrics'][-1])}")
+    check(loss_err <= TRAIN_REF_LOSS_TOL, f"{label}: metrics differ from one process")
+    check(grad_err <= TRAIN_REF_GRAD_TOL, f"{label}: gradients differ from one process")
+    return {"loss_err": loss_err, "grad_err": grad_err, "worst": worst}
+
+
+def phase_dp(dev) -> dict:
+    """Data parallel (see the module docstring, phase 9 (a))."""
+    from probabilisticteacher_torch.parallel.mesh import Mesh
+
+    ref = dp_f32_steps(dev, Mesh(0, 1, dev))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = run_dp_ranks("gloo", shared_card=True)
+    out = {"runs": [{"world": r["world"], "backend": r["backend"], "device": r["device"]}
+                    for r in ranks]}
+    out["shared_card_gloo"] = dp_compare("2 ranks sharing the card", ref, ranks)
+    for r, rank in enumerate(ranks):
+        b = rank["bf16"]
+        log(f"[dp] rank {r} bf16 mutual steps (8 + 8 images): ms per step {b['step_ms']!r}; "
+            f"gradient all-reduce ms {b['grad_all_reduce_ms']!r}; replicas bit-identical "
+            f"{b['identical']}; launches {b['launches']}")
+        check(all(b["finite"]), f"rank {r}: bf16 metrics not finite")
+        check(all(b["identical"]), f"rank {r}: the replicas differ after a bf16 step")
+        for k in KERNELS:
+            check(b["launches"][k.symbol] > 0, f"{k.symbol} was not launched on rank {r}")
+    log("[dp] the two ranks share one card, each running while the other waits or runs: "
+        "their step time is no scaling figure")
+    out["bf16"] = [rank["bf16"] for rank in ranks]
+    launches = {}
+    for r, rank in enumerate(ranks):
+        launches[f"dp_burnin_step_rank{r}"] = rank["f32"]["launches"][0]
+        launches[f"dp_mutual_step_rank{r}"] = rank["f32"]["launches"][1]
+        launches[f"dp_mutual_step_bf16_rank{r}"] = rank["bf16"]["launches"]
+    for name, c in launches.items():
+        for k in KERNELS:
+            check(c[k.symbol] > 0, f"{k.symbol} was not launched on the {name} path")
+    if torch.cuda.device_count() >= DP_WORLD:
+        nccl = run_dp_ranks("nccl", shared_card=False)
+        out["runs"] += [{"world": r["world"], "backend": r["backend"], "device": r["device"]}
+                        for r in nccl]
+        out["two_cards_nccl"] = dp_compare("2 ranks on 2 cards", ref, nccl)
+    else:
+        log(f"[dp] {torch.cuda.device_count()} card: NCCL across cards is not run here")
+    log(f"[dp] world sizes and backends run: {json.dumps(out['runs'])}")
+    return {"out": out, "launches": launches, "calls": {k: 1 for k in launches}}
+
+
+def phase_dp_cli(dev, train_net, work) -> dict:
+    """The CLI with ``--num-gpus <cards>`` over NCCL on the tree phase 8 wrote: a world
+    of one on a one-card machine (``train_net.main`` runs it in this process)."""
+    cards = torch.cuda.device_count()
+    argv = ["--num-gpus", str(cards), "--config-file", CLI_CONFIG, "MODEL.VGG.PRETRAIN", "",
+            "SEED", "0", "UNSUPNET.BURN_UP_STEP", "1", "SOLVER.CHECKPOINT_PERIOD", "0",
+            "TEST.EVAL_PERIOD", "0", "SOLVER.MAX_ITER", "2",
+            "OUTPUT_DIR", os.path.join(work, "output_dp")]
+    if cards == 1:
+        res, counts = drive_cli("cli_num_gpus", train_net, argv)
+    else:
+        res, counts = train_net.main(train_net.parse_args(argv)), None
+    log(f"[dp] CLI --num-gpus {cards}: {json.dumps(res)}")
+    check(_finite_results(res), "the --num-gpus run gave no finite mAP")
+    check(os.path.isfile(os.path.join(work, "output_dp", "model_0000002")),
+          "the --num-gpus run wrote no checkpoint")
+    return {"out": {"num_gpus": cards, "eval": res},
+            "launches": {} if counts is None else {"cli_num_gpus": counts},
+            "calls": {} if counts is None else {"cli_num_gpus": 1}}
+
+
+# --------------------------------------------------------------------- phase 10
+NMS_IMPLS = ("greedy", "maxpool", "maxpool_train", "hybrid")
+
+
+def lever_proposals(name, det, feat, batch, impl, training) -> dict:
+    """``predict_proposals`` alone under the lever: valid, finite boxes inside each
+    image, and K3 launched exactly where the lever runs the exact NMS."""
+    obj, deltas = det.rpn_predict(feat)
+    anchors = det.anchors(feat.shape[1], feat.shape[2])
+    exact = impl in ("greedy", "hybrid") or (impl == "maxpool_train" and not training)
+    props, times, counts = drive(name, lambda: det.predict_proposals(
+        anchors, obj, deltas, batch.image_hw, training, grid_hw=tuple(feat.shape[1:3])), 2,
+        required=(nms_cuda.KERNEL,) if exact else ())
+    check((counts[nms_cuda.KERNEL.symbol] > 0) == exact,
+          f"{name}: the NMS kernel launched {counts[nms_cuda.KERNEL.symbol]} times")
+    v = props.valid
+    b = props.boxes[v]
+    hw = batch.image_hw[:, None, :].expand(-1, v.shape[1], -1)[v]
+    check(bool(v.any(dim=1).all()), f"{name}: an image has no valid proposal")
+    check(bool(torch.isfinite(b).all() and torch.isfinite(props.logits[v]).all()),
+          f"{name}: proposals not finite")
+    check(bool((b[:, 0] >= 0).all() and (b[:, 1] >= 0).all() and (b[:, 2] <= hw[:, 1]).all()
+               and (b[:, 3] <= hw[:, 0]).all() and (b[:, 2] > b[:, 0]).all()
+               and (b[:, 3] > b[:, 1]).all()), f"{name}: proposals outside their image")
+    return {"ms": times, "valid_per_image": (v.sum() / v.shape[0]).item(), "launches": counts}
+
+
+def phase_levers(dev) -> dict:
+    """The opt-in levers at full width (see the module docstring, phase 10)."""
+    from probabilisticteacher_torch.profile_slice import KERNEL_ROWS, kernel_ms, profile_call
+
+    gen = torch.Generator().manual_seed(11)
+    image = (torch.rand(N, *CANVAS, 3, generator=gen) * 255).to(dev)
+    hw = torch.tensor(IMAGE_HW[:N], dtype=torch.float32, device=dev)
+    inside = ((torch.arange(CANVAS[0], device=dev)[None, :, None] < hw[:, 0, None, None])
+              & (torch.arange(CANVAS[1], device=dev)[None, None, :] < hw[:, 1, None, None]))
+    batch = ImageBatch(image * inside[..., None], hw)
+    limg, lgt, uimg = dp_batches(dev)
+    out, launches, calls = {}, {}, {}
+    k3 = KERNEL_ROWS["nms_keep_ms"]
+    for impl in NMS_IMPLS:
+        cfg = dp_cfg(True, 0)
+        cfg.merge_from_list(["MODEL.RPN.NMS_IMPL", impl])
+        det = dp_student(cfg, dev)
+        row = {}
+        with torch.no_grad():
+            feat = det.features(batch)
+            for training in (False, True):
+                name = f"proposals_{impl}_{'train' if training else 'test'}"
+                row[name] = lever_proposals(name, det, feat, batch, impl, training)
+                launches[name], calls[name] = row[name].pop("launches"), 2
+        del feat
+        for path, fn in (("detect", det.detect), ("pseudo_labels", det.pseudo_labels)):
+            name = f"{path}_{impl}"
+            res, t, c = drive(name, lambda: fn(batch), 2)
+            check_outputs(name, res, N, det.arch.detections_per_image, det.arch.num_classes)
+            prof, rows = profile_call(lambda: fn(batch))
+            row[name] = {"ms": t, "k3_ms": kernel_ms(rows, k3)}
+            launches[name], calls[name] = c, 2
+        state = create_train_state(det, build_optimizer(cfg, det))
+        _, mutual = make_train_steps(cfg, det)
+        draws = torch.Generator(device=dev).manual_seed(12)
+        name = f"mutual_step_{impl}"
+        (state, m), t, c = drive(name, lambda: mutual(state, limg, lgt, uimg, draws), 1, KERNELS)
+        check(_finite(m), f"{name}: metrics not finite {m}")
+        check(float(m["num_pseudo_boxes"]) > 0, f"{name}: the teacher made no pseudo-labels")
+        prof, rows = profile_call(lambda: mutual(state, limg, lgt, uimg, draws))
+        row[name] = {"ms": t, "k3_ms": kernel_ms(rows, k3),
+                     "num_valid_proposals": {k: float(v) for k, v in m.items()
+                                             if k.startswith("rpn/num_valid_proposals")}}
+        launches[name], calls[name] = c, 1
+        log(f"[levers] {impl}: {json.dumps(row)}")
+        out[impl] = row
+        del state, det
+        torch.cuda.empty_cache()
+    out["remat"], launches_r = phase_remat(dev, limg, lgt, uimg)
+    launches.update(launches_r)
+    calls.update({k: 1 for k in launches_r})
+    return {"out": out, "launches": launches, "calls": calls}
+
+
+def phase_remat(dev, limg, lgt, uimg):
+    """One bf16 mutual step with ``MODEL.BACKBONE.REMAT`` off and on from the same
+    state and draws: gradients within ``TRAIN_REF_GRAD_TOL`` of their L2 norm, a
+    lower peak memory with REMAT on, and the ms of both."""
+    runs, launches = {}, {}
+    for remat in (False, True):
+        cfg = dp_cfg(True, 0)
+        cfg.merge_from_list(["MODEL.BACKBONE.REMAT", str(remat)])
+        det = dp_student(cfg, dev)
+        state = create_train_state(det, build_optimizer(cfg, det))
+        _, mutual = make_train_steps(cfg, det)
+        grads, stages = {}, []
+
+        def mark(name):
+            # each stage's peak, and what stays allocated after it
+            stages.append((name, torch.cuda.max_memory_allocated() / 2**30,
+                           torch.cuda.memory_allocated() / 2**30))
+            torch.cuda.reset_peak_memory_stats()
+            if name == "backward":
+                grads.update({k: p.grad.detach().float().cpu() for k, p in
+                              state.student.named_parameters() if p.grad is not None})
+
+        draws = torch.Generator(device=dev).manual_seed(13)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"mutual_step_remat_{'on' if remat else 'off'}"
+        (state, m), t, c = drive(name, lambda: mutual(state, limg, lgt, uimg, draws, mark), 1,
+                                 KERNELS)
+        check(_finite(m), f"{name}: metrics not finite")
+        runs[remat] = {"ms": t, "peak_gib": max(p for _, p, _ in stages), "grads": grads,
+                       "stages_gib": stages}
+        log(f"[levers] {name}: (stage, peak GiB, allocated GiB after it) {stages!r}")
+        launches[name] = c
+        del state, det
+    off, on = runs[False], runs[True]
+    err, worst = 0.0, None
+    for k, v in off["grads"].items():
+        e = ((on["grads"][k] - v).norm() / v.norm().clamp(min=1e-30)).item()
+        if e > err:
+            err, worst = e, k
+    log(f"[levers] REMAT: mutual step ms off {off['ms']!r}, on {on['ms']!r}; peak GiB off "
+        f"{off['peak_gib']!r}, on {on['peak_gib']!r}; worst gradient error {err!r} of its L2 "
+        f"norm ({worst}; limit {TRAIN_REF_GRAD_TOL})")
+    check(on["grads"].keys() == off["grads"].keys(), "REMAT changes which parameters get a gradient")
+    check(err <= TRAIN_REF_GRAD_TOL, "REMAT changes the gradients")
+    check(on["peak_gib"] < off["peak_gib"], "REMAT does not lower the peak memory")
+    torch.cuda.empty_cache()
+    return ({"ms_off": off["ms"], "ms_on": on["ms"], "peak_gib_off": off["peak_gib"],
+             "peak_gib_on": on["peak_gib"], "stages_gib_off": off["stages_gib"],
+             "stages_gib_on": on["stages_gib"], "grad_err": err}, launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -1012,10 +1448,14 @@ def main() -> int:
     phase_reference(dev)
     tr = phase_train(dev)
     phase_train_reference(dev)
-    cli = phase_cli(dev)
+    cli, dp_cli = phase_cli(dev)
+    dp = phase_dp(dev)
+    lv = phase_levers(dev)
 
-    launches = {**sl["launches"], **tr["launches"], **cli["launches"]}
-    calls = {**sl["calls"], **tr["calls"], **cli["calls"]}
+    launches, calls = {}, {}
+    for ph in (sl, tr, cli, dp_cli, dp, lv):
+        launches.update(ph["launches"])
+        calls.update(ph["calls"])
     for entry, k in ((k_roi, roi_align_cuda.KERNEL), (k_bwd, roi_align_cuda.BWD_KERNEL),
                      (k_nms, nms_cuda.KERNEL)):
         per = {path: c[k.symbol] for path, c in launches.items()}
@@ -1023,7 +1463,8 @@ def main() -> int:
         entry["launches_by_path"] = per
         entry["calls_by_path"] = calls
     log(json.dumps({"slice": {k: v for k, v in sl.items() if k not in ("launches", "calls")},
-                    "train": tr["out"], "cli": cli["out"], "build_s": build_s,
+                    "train": tr["out"], "cli": cli["out"], "dp_cli": dp_cli["out"],
+                    "dp": dp["out"], "levers": lv["out"], "build_s": build_s,
                     "total_s": time.perf_counter() - t0}))
     log("[kernels] library_ms is null for all three: core PyTorch has no ROIAlign, ROIAlign "
         "backward or NMS call (torchvision is not installed), so no single library call "

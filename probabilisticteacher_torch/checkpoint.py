@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .modeling.backbone import VGG_STAGES
+from .parallel.mesh import process_index
 
 logger = logging.getLogger("probabilisticteacher_torch")
 
@@ -44,11 +45,16 @@ def save_checkpoint(output_dir: str, state, keep: int = 100, name: str = "") -> 
     beyond the newest ``keep`` are deleted. ``name`` saves to a fixed file (e.g.
     ``model_best``) WITHOUT touching the marker or the retention scan, so resume
     still follows the latest periodic checkpoint.
+
+    Over several ranks every rank may call this; the replicas are identical, so
+    rank 0 alone writes the file and the marker, and the others return its path.
     """
-    os.makedirs(output_dir, exist_ok=True)
     step = int(state.step)
     path = os.path.join(os.path.abspath(output_dir), name) if name \
         else _ckpt_path(output_dir, step)
+    if process_index() != 0:
+        return path
+    os.makedirs(output_dir, exist_ok=True)
     payload = {"step": step,
                "student": state.student.state_dict(),
                "teacher": state.teacher.state_dict(),

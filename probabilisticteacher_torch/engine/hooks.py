@@ -1,4 +1,4 @@
-"""Pluggable trainer hooks (the JAX package's ``engine/hooks.py``, one process, one card).
+"""Pluggable trainer hooks (the JAX package's ``engine/hooks.py``).
 
 Mirrors detectron2's hook protocol exercised by ``PTrainer.build_hooks``
 (``pt/engine/trainer.py:498-547``): objects with
@@ -8,6 +8,14 @@ trainer and called in order (after_* in reverse order, like detectron2).
 The default hook set: iteration timing, periodic writers (every 20), periodic
 checkpointing, periodic dual eval of student and teacher, and the
 ``torch.profiler`` window. Users add hooks via ``trainer.register_hooks([...])``.
+
+Over several ranks (``trainer.mesh``), every rank runs every hook, and each
+decision that leads to a collective or to a save is the same on all of them:
+metrics are summed over the ranks at the writer's cadence (``data_time`` is their
+max), rank 0 alone evaluates and broadcasts what it decides from an evaluation
+(the best checkpoint, the teacher's mAP drop), and the memory guard compares the
+largest RSS of the ranks, so that all ranks save and exit together. Checkpoint
+files are written by rank 0 (``checkpoint.save_checkpoint``).
 
 Two detectron2 default hooks have no counterpart here, as in the JAX package:
 ``LRScheduler`` (:class:`ClippedSGD` reads its schedule at its own update count;
@@ -26,6 +34,8 @@ from collections import deque
 from typing import Dict, Optional
 
 import torch
+
+from ..parallel.mesh import broadcast_values, host_max
 
 logger = logging.getLogger("probabilisticteacher_torch")
 
@@ -98,8 +108,9 @@ class PeriodicWriter(HookBase):
         if metrics is None:
             return
         if mit % self.period == 0 or final:
-            host = metrics.values()
-            host["data_time"] = t.last_data_time
+            host = metrics.values(t.mesh)
+            # max across ranks, like the reference (trainer.py:407-411)
+            host["data_time"] = host_max(t.mesh, t.last_data_time)
             # "lr" in every write, like detectron2's LRScheduler hook: the value
             # the optimizer read at that iteration
             host["lr"] = float(t.state.optimizer.lr_schedule(mit))
@@ -132,12 +143,14 @@ class PeriodicCheckpointer(HookBase):
             from ..checkpoint import save_checkpoint
 
             save_checkpoint(t.cfg.OUTPUT_DIR, t.state, keep=self.keep)
-            logger.info(f"Checkpoint saved at iter {nxt}")
+            if t.mesh.rank == 0:
+                logger.info(f"Checkpoint saved at iter {nxt}")
 
 
 class EvalHook(HookBase):
     """Periodic dual eval: student (suffixed) + teacher (plain keys: the headline
-    metric tracks the teacher), as the reference does (``trainer.py:529-542``)."""
+    metric tracks the teacher), on rank 0, as the reference does
+    (``trainer.py:529-542``)."""
 
     def __init__(self, period: int):
         self.period = period
@@ -145,7 +158,7 @@ class EvalHook(HookBase):
     def after_step(self):
         t = self.trainer
         nxt = t.iter + 1
-        if self.period and nxt % self.period == 0:
+        if self.period and nxt % self.period == 0 and t.mesh.rank == 0:
             t.eval_and_log(suffix="_student", model=t.state.student)
             t.eval_and_log(suffix="", model=t.state.teacher)
 
@@ -185,16 +198,22 @@ class BestCheckpointer(HookBase):
 
     def _check(self):
         t = self.trainer
-        val = t.storage.latest().get(self.metric)
-        if val is None or (self.best is not None and self.sign * val <= self.sign * self.best):
+        # only rank 0 holds eval metrics (EvalHook is rank 0's); it decides, and the
+        # decision is broadcast so that every rank enters the save together
+        val = t.storage.latest().get(self.metric) if t.mesh.rank == 0 else None
+        improved = val is not None and (self.best is None
+                                        or self.sign * val > self.sign * self.best)
+        flag, bval = broadcast_values(t.mesh, [float(improved), val or 0.0])
+        if not flag:
             return
-        self.best = val
+        self.best = val = bval
         from ..checkpoint import save_checkpoint
 
         path = save_checkpoint(t.cfg.OUTPUT_DIR, t.state, keep=0, name="model_best")
-        with open(self._marker_path(), "w") as f:
-            json.dump({"metric": self.metric, "best": val, "step": int(t.state.step)}, f)
-        logger.info(f"New best {self.metric}={val:.3f} -> {path}")
+        if t.mesh.rank == 0:
+            with open(self._marker_path(), "w") as f:
+                json.dump({"metric": self.metric, "best": val, "step": int(t.state.step)}, f)
+            logger.info(f"New best {self.metric}={val:.3f} -> {path}")
 
     def before_step(self):
         # runs at the iteration AFTER an eval boundary: after_* hooks run in
@@ -239,7 +258,9 @@ class MemoryGuardHook(HookBase):
         t = self.trainer
         if not self.limit_kb or (t.iter + 1) % self.period:
             return
-        rss = self.rss_kb()
+        # every rank compares the largest RSS of all ranks, so all of them save and
+        # exit 75 together instead of one dying while the others wait on it
+        rss = host_max(t.mesh, self.rss_kb())
         if rss <= self.limit_kb:
             return
         logger.warning(
@@ -299,7 +320,10 @@ class TeacherHealthHook(HookBase):
     On trigger: a WARNING naming ``UNSUPNET.UNSUP_LOSS_WARMUP_ITERS`` (the rescue
     lever), a ``health/collapse_flag`` scalar in the metrics stream, and a
     one-time forensic checkpoint ``model_health`` holding the state at detection.
-    The mAP watch reads the plain ``mAP50`` key (a single test dataset).
+    The mAP watch reads the plain ``mAP50`` key (a single test dataset). Over
+    several ranks the pseudo-box metric is the same on every rank (summed at the
+    writer), so that watch needs no coordination; the mAP is rank 0's and its
+    decision is broadcast.
     """
 
     def __init__(self, eval_period: int, pseudo_drop: float = 0.5,
@@ -350,11 +374,18 @@ class TeacherHealthHook(HookBase):
         # runs before us: registration order)
         if (t.iter + 1) % self.eval_period:
             return
-        cur = t.storage.latest().get("mAP50")
-        if cur is None:
-            return
-        prev, self._prev_map = self._prev_map, cur
-        if t.storage.iter_of("mAP50") >= 0 and prev is not None and prev - cur > self.map_drop:
+        # rank 0 holds the eval; every rank takes this branch together, and rank 0's
+        # decision is broadcast so that all of them enter the forensic save
+        hit, prev, cur = False, 0.0, 0.0
+        if t.mesh.rank == 0:
+            latest = t.storage.latest().get("mAP50")
+            if latest is not None:
+                prev, cur = self._prev_map, latest
+                hit = (t.storage.iter_of("mAP50") >= 0 and prev is not None
+                       and prev - cur > self.map_drop)
+                self._prev_map = latest
+        flag, prev, cur = broadcast_values(t.mesh, [float(hit), prev or 0.0, cur])
+        if flag:
             self._trigger(f"teacher mAP50 fell {prev:.1f} -> {cur:.1f} "
                           f"(> {self.map_drop} points) between evals")
 

@@ -13,19 +13,28 @@ methods and behaviour:
 - ``resume_or_load`` with a last_checkpoint marker (``trainer.py:466-496``);
 - config dump into OUTPUT_DIR for provenance (``train_net.py:54-55``).
 
-It is one process on one device: the card unless ``MODEL.DEVICE`` is ``"cpu"``
-(any other value, the config's default ``"tpu"`` included, means the card, and
-its absence raises). Host batches reach the card through the CUDA-stream double
-buffer of ``parallel/prefetch.py``. Each step's random draws come from one
-``torch.Generator`` on the device, reseeded per iteration from ``SEED + 17`` and
-the iteration (the JAX package folds the iteration into its ``SEED + 17`` key),
-so a resumed run draws what an uninterrupted one would. ``COMPILE_CACHE_DIR`` is
-ignored: there is no XLA compile to cache.
+Each process is one rank on one device: the card unless ``MODEL.DEVICE`` is
+``"cpu"`` (any other value, the config's default ``"tpu"`` included, means the
+card, and its absence raises). A launcher's environment (``torchrun``, or the
+CLI's ``--num-gpus``) makes it one of W data-parallel ranks (``parallel/mesh.py``):
+each loads 1/W of the global batch with its own sample stream (``SEED + 9973
+rank``), the steps reduce counts and gradients over the ranks, and rank 0 alone
+writes metrics, the config dump and checkpoint files and runs the evaluations,
+which hold no collective (JAX ``trainer.py:74``, ``:136``, ``:200-205``, ``:323``).
+W must divide both batch sizes (``PARALLEL.ALLOW_DEVICE_SUBSET`` trains on the
+largest rank count that does instead). Host batches reach the card through the
+CUDA-stream double buffer of ``parallel/prefetch.py``. Each step's random draws
+come from one ``torch.Generator`` on the device, reseeded per iteration from
+``SEED + 17`` and the iteration (the JAX package folds the iteration into its
+``SEED + 17`` key), so a resumed run draws what an uninterrupted one would, and
+every rank draws the global batch's numbers. ``COMPILE_CACHE_DIR`` is ignored:
+there is no XLA compile to cache.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import time
 from typing import Dict, List, Optional
@@ -41,6 +50,7 @@ from ..data.loader import EvalLoader, SemiSupLoader
 from ..evaluation import evaluate_detections
 from ..events import ConsoleWriter, EventStorage, JSONWriter, TensorboardWriter
 from ..modeling.detector import PTDetector
+from ..parallel.mesh import Mesh, all_reduce_sum, make_mesh, replicate
 from ..parallel.prefetch import DevicePrefetcher, host_to_device
 from ..solver import auto_scale_config, build_optimizer
 from ..structures import GroundTruth, ImageBatch, resolve_device
@@ -55,6 +65,22 @@ def trainer_device(name: str) -> torch.device:
     return resolve_device("cpu" if str(name).lower() == "cpu" else None)
 
 
+def data_parallel_size(cfg, world: int) -> int:
+    """The ranks that train out of ``world``: all of them, which must divide both
+    per-stream batch sizes (the reference's check, ``pt/data/build.py:173-187``),
+    or, under ``PARALLEL.ALLOW_DEVICE_SUBSET``, the largest count that does."""
+    bl, bu = int(cfg.SOLVER.IMG_PER_BATCH_LABEL), int(cfg.SOLVER.IMG_PER_BATCH_UNLABEL)
+    n_use = math.gcd(math.gcd(bl, bu), world)
+    if n_use != world:
+        msg = (f"IMG_PER_BATCH_{{LABEL,UNLABEL}}=({bl},{bu}) not divisible by the {world} "
+               f"ranks; only {n_use} would be used. Set batch sizes to a multiple of "
+               f"{world}, or set PARALLEL.ALLOW_DEVICE_SUBSET True to train on {n_use} ranks.")
+        if not bool(cfg.PARALLEL.ALLOW_DEVICE_SUBSET):
+            raise ValueError(msg)
+        logger.warning(msg)
+    return n_use
+
+
 class StepMetrics:
     """One step's metrics on their way to the host.
 
@@ -67,6 +93,7 @@ class StepMetrics:
     def __init__(self, metrics: Dict[str, torch.Tensor]):
         self.names = list(metrics)
         stacked = torch.stack([metrics[k].detach().float().reshape(()) for k in self.names])
+        self._stacked = stacked
         self._event: Optional[torch.cuda.Event] = None
         if stacked.is_cuda:
             self._host = stacked.to("cpu", non_blocking=True)
@@ -75,7 +102,11 @@ class StepMetrics:
         else:
             self._host = stacked
 
-    def values(self) -> Dict[str, float]:
+    def values(self, mesh: Optional[Mesh] = None) -> Dict[str, float]:
+        """The metrics; over several ranks, the sum of the ranks' shares (every rank
+        must call this at the same iteration)."""
+        if mesh is not None and mesh.distributed:
+            return dict(zip(self.names, all_reduce_sum(mesh, self._stacked).tolist()))
         if self._event is not None:
             self._event.synchronize()
         return dict(zip(self.names, self._host.tolist()))
@@ -85,11 +116,14 @@ class PTrainer:
     def __init__(self, cfg):
         cfg = auto_scale_config(cfg.clone() if getattr(cfg, "__immutable__", False) else cfg)
         self.cfg = cfg
-        self.device = trainer_device(cfg.MODEL.DEVICE)
+        world = data_parallel_size(cfg, int(os.environ.get("WORLD_SIZE", 1)))
+        self.mesh = make_mesh(trainer_device(cfg.MODEL.DEVICE), world_size=world)
+        self.device = self.mesh.device
         register_builtin()
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
+        if self.mesh.rank == 0:   # provenance dump, one writer
+            with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+                f.write(cfg.dump())
 
         self.arch = Arch.from_cfg(cfg)
         seed = max(int(cfg.SEED), 0)
@@ -101,14 +135,16 @@ class PTrainer:
             logger.info(f"Loaded Caffe VGG pretrained weights from {pretrain}")
         elif pretrain:
             logger.warning(f"Pretrained backbone {pretrain} not found; training from scratch")
+        replicate(self.mesh, student)
         self.state = create_train_state(student, build_optimizer(cfg, student))
-        self.burnin_step, self.mutual_step = make_train_steps(cfg, student)
+        self.burnin_step, self.mutual_step = make_train_steps(cfg, student, self.mesh)
 
         self.start_iter = 0
         self.max_iter = int(cfg.SOLVER.MAX_ITER)
         self.burn_up = int(cfg.UNSUPNET.BURN_UP_STEP)
         self.storage = EventStorage()
-        self.writers = [
+        # rank 0 writes: other ranks would interleave lines in metrics.json
+        self.writers = [] if self.mesh.rank != 0 else [
             ConsoleWriter(self.max_iter),
             JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json")),
             TensorboardWriter(cfg.OUTPUT_DIR),
@@ -164,8 +200,10 @@ class PTrainer:
             label_dicts.extend(DatasetCatalog.get(name))
         for name in self.cfg.DATASETS.TRAIN_UNLABEL:
             unlabel_dicts.extend(DatasetCatalog.get(name))
+        # each rank loads its 1/W of the global batch with its own sample stream
         return SemiSupLoader(self.cfg, label_dicts, unlabel_dicts,
-                             seed=max(int(self.cfg.SEED), 0))
+                             seed=max(int(self.cfg.SEED), 0) + 9973 * self.mesh.rank,
+                             world_size=self.mesh.world_size)
 
     # --------------------------------------------------------------- restore
     def resume_or_load(self, resume: bool = False):
@@ -173,6 +211,7 @@ class PTrainer:
             path = latest_checkpoint(self.cfg.OUTPUT_DIR)
             if path:
                 load_checkpoint(path, self.state)
+                replicate(self.mesh, self.state)
                 self.start_iter = int(self.state.step)
                 logger.info(f"Resumed from {path} at iter {self.start_iter}")
                 return
@@ -187,6 +226,7 @@ class PTrainer:
                                         self.cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION)
             else:
                 load_weights(weights, self.state)
+            replicate(self.mesh, self.state)
             logger.info(f"Loaded weights from {weights}")
 
     # ------------------------------------------------------------------ train
@@ -278,8 +318,11 @@ class PTrainer:
             h.after_train()
 
         save_checkpoint(self.cfg.OUTPUT_DIR, self.state)
-        results = self.test(self.state.teacher)
-        self.verify_results(results)
+        # the final eval is rank 0's; it holds no collective, so the others go on
+        results: Dict[str, float] = {}
+        if self.mesh.rank == 0:
+            results = self.test(self.state.teacher)
+            self.verify_results(results)
         return results
 
     def verify_results(self, results: Dict[str, float]) -> bool:
@@ -309,7 +352,8 @@ class PTrainer:
                         rng_seed: int = 0) -> Dict[str, float]:
         """Mean supervised losses over a labeled val set (LossEvalHook equivalent,
         ``pt/engine/hooks.py:24-133``, defined but never registered in the
-        reference; offered here as a utility)."""
+        reference; offered here as a utility). Like :meth:`test`, it runs on the
+        calling rank alone: its counts are its own and it holds no collective."""
         dicts = [d for d in DatasetCatalog.get(dataset_name) if d.get("annotations")]
         loader = EvalLoader(self.cfg, dicts)
         dev = self.device

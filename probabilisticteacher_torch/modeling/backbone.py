@@ -18,6 +18,18 @@ Training follows the JAX package in two places:
 - blocks 1..``freeze_at`` pass no gradient back: they run under ``no_grad``,
   which is the JAX package's ``stop_gradient`` after block ``freeze_at`` without
   keeping the frozen stem's activations for a backward that never comes.
+
+Memory: the ReLUs run in place, and the frozen stem runs ``STEM_CHUNK`` images at
+a time. At full resolution the stem's activations are a step's largest tensors (a
+mutual step's 48 images at 608 x 1344 hold two 4.7 GiB ones in block 1), and
+without both the step's peak memory is the stem's, whatever the trainable blocks
+keep. Each image's values are the same either way.
+
+``remat`` (``MODEL.BACKBONE.REMAT``, the JAX package's ``jax.checkpoint`` over the
+conv stack) runs the blocks after the frozen ones under
+``torch.utils.checkpoint``: the backward recomputes their activations instead of
+keeping them, through the same :class:`MaxPool2x2`, so the gradients are those
+of the plain run.
 """
 
 from __future__ import annotations
@@ -27,6 +39,9 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+STEM_CHUNK = 16     # images per pass through the frozen stem
 
 VGG_STAGES: Dict[int, Sequence[Sequence[int]]] = {
     11: ((64,), (128,), (256, 256), (512, 512), (512, 512)),
@@ -73,10 +88,11 @@ class VGG(nn.Module):
     """
 
     def __init__(self, depth: int = 16, out_feature: str = "vgg_block5",
-                 dtype: torch.dtype = torch.float32, freeze_at: int = 0):
+                 dtype: torch.dtype = torch.float32, freeze_at: int = 0, remat: bool = False):
         super().__init__()
         self.depth = depth
         self.freeze_at = freeze_at
+        self.remat = remat
         self.out_feature = out_feature
         self.last_block = int(out_feature.replace("vgg_block", ""))
         self.dtype = dtype
@@ -89,19 +105,30 @@ class VGG(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         frozen = min(self.freeze_at, self.last_block)
-        with torch.no_grad():
-            for bi in range(1, frozen + 1):
-                x = self._block(x, bi)
-        for bi in range(frozen + 1, self.last_block + 1):
-            x = self._block(x, bi)
+        if frozen:
+            with torch.no_grad():
+                if x.shape[0] > STEM_CHUNK:
+                    x = torch.cat([self._blocks(c, 1, frozen) for c in x.split(STEM_CHUNK)])
+                    x = x.contiguous(memory_format=torch.channels_last)
+                else:
+                    x = self._blocks(x, 1, frozen)
+        if self.remat and torch.is_grad_enabled():
+            x = checkpoint(self._blocks, x, frozen + 1, self.last_block, use_reentrant=False)
+        else:
+            x = self._blocks(x, frozen + 1, self.last_block)
         return x.permute(0, 2, 3, 1)
+
+    def _blocks(self, x: torch.Tensor, first: int, last: int) -> torch.Tensor:
+        for bi in range(first, last + 1):
+            x = self._block(x, bi)
+        return x
 
     def _block(self, x: torch.Tensor, bi: int) -> torch.Tensor:
         """Block ``bi``'s convolutions, then its pool unless it is the last or block5."""
         for ci in range(1, len(VGG_STAGES[self.depth][bi - 1]) + 1):
             conv = getattr(self, f"block{bi}_conv{ci}")
             x = F.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
-                                padding=1))
+                                padding=1), inplace=True)
         if bi != self.last_block and bi < 5:  # no pool in block5 -> stride stays 16
             x = MaxPool2x2.apply(x)
         return x

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,9 +40,12 @@ from ..ops import boxes as box_ops
 from ..ops import losses as L
 from ..ops.box_regression import apply_deltas, get_deltas
 from ..ops.matcher import masked_iou, match
+from ..ops.maxpool_nms import maxpool_keep, maxpool_nms_select
 from ..ops.nms_cuda import batched_nms, nms
 from ..ops.roi_align_cuda import roi_align
-from ..ops.sampling import SampleDraws, draw_uniforms, subsample_labels
+from ..ops.sampling import RowDraws, SampleDraws, draw_rows, draw_uniforms, subsample_labels
+from ..ops.sampling import top_desc as _top_desc
+from ..parallel.mesh import global_sum
 from ..structures import (Detections, GroundTruth, ImageBatch, Proposals, PseudoLabels,
                           resolve_device)
 from .anchors_build import anchor_boxes, init_anchor_params, num_cell_anchors
@@ -50,7 +54,9 @@ from .heads import BoxHead, FastRCNNPredictor, RPNHead
 
 __all__ = ["Arch", "LossDraws", "PTDetector"]
 
-_EXACT_NMS = ("greedy", "greedy_xla", "pallas")
+# the exact NMS runs for the first three (one CUDA kernel serves the JAX package's two
+# formulations); the others change the proposals (``predict_proposals``)
+_NMS_IMPLS = ("greedy", "greedy_xla", "pallas", "maxpool", "maxpool_train", "hybrid")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -58,12 +64,6 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (N, K, ...) gathered along dim 1 by idx (N, M) -> (N, M, ...)."""
     idx = idx.to(torch.int64)
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
-
-
-def _top_desc(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` along the last dim: descending, the lower index first among ties."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _first_k_indices(mask: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,13 +94,15 @@ class LossDraws(NamedTuple):
     roi: SampleDraws
 
 
-Draws = Union[LossDraws, torch.Generator]
+Rows = Union[SampleDraws, torch.Generator, RowDraws]   # the uniforms of one sampling call
+Draws = Union[LossDraws, torch.Generator, RowDraws]
 
 
-def _sample_draws(draws: Union[SampleDraws, torch.Generator], shape,
-                  device) -> SampleDraws:
+def _sample_draws(draws: Rows, shape, device) -> SampleDraws:
     if isinstance(draws, torch.Generator):
         return draw_uniforms(shape, draws, device)
+    if isinstance(draws, RowDraws):
+        return draw_rows(draws, shape, device)
     if tuple(draws.pos.shape) != tuple(shape):
         raise ValueError(f"sampling uniforms of shape {tuple(draws.pos.shape)}, need "
                          f"{tuple(shape)}")
@@ -108,8 +110,9 @@ def _sample_draws(draws: Union[SampleDraws, torch.Generator], shape,
 
 
 def _split(draws: Draws):
-    """(rpn, roi) draws of a LossDraws, or the generator twice."""
-    if isinstance(draws, torch.Generator):
+    """(rpn, roi) draws of a LossDraws, or the generator (or a rank's share of its
+    draws) twice."""
+    if isinstance(draws, (torch.Generator, RowDraws)):
         return draws, draws
     return draws.rpn, draws.roi
 
@@ -126,17 +129,16 @@ class PTDetector(nn.Module):
 
     def __init__(self, arch: Arch, device=None):
         super().__init__()
-        if arch.rpn_nms_impl not in _EXACT_NMS:
-            raise NotImplementedError(
-                f"MODEL.RPN.NMS_IMPL {arch.rpn_nms_impl!r} is not ported yet (ROADMAP A13); "
-                f"the port runs the exact NMS for {_EXACT_NMS}")
+        if arch.rpn_nms_impl not in _NMS_IMPLS:
+            raise ValueError(f"MODEL.RPN.NMS_IMPL {arch.rpn_nms_impl!r} is none of {_NMS_IMPLS}")
         self.arch = arch
         self.device = resolve_device(device)
         self.dtype = _DTYPES[arch.compute_dtype]
         self.A = num_cell_anchors(arch)
         in_channels = VGG.out_channels(arch.vgg_depth, arch.feature)
         p = arch.pooler_resolution
-        self.backbone = VGG(arch.vgg_depth, arch.feature, self.dtype, arch.freeze_at)
+        self.backbone = VGG(arch.vgg_depth, arch.feature, self.dtype, arch.freeze_at,
+                            arch.remat_backbone)
         self.rpn_head = RPNHead(self.A, 8, in_channels, self.dtype)
         self.box_head = BoxHead(p * p * in_channels, arch.fc_dim, arch.num_fc, self.dtype)
         self.predictor = FastRCNNPredictor(arch.fc_dim, arch.num_classes, 8)
@@ -221,22 +223,56 @@ class PTDetector(nn.Module):
 
     def predict_proposals(self, anchors: torch.Tensor, obj: torch.Tensor, deltas: torch.Tensor,
                           image_hw: torch.Tensor, training: bool,
+                          grid_hw: Optional[Tuple[int, int]] = None,
                           budget: Optional[Tuple[int, int]] = None) -> Proposals:
         """Top-k by objectness -> decode -> clip -> min-size filter -> sigma-rescored
         exact greedy NMS -> post-NMS budget, for all images at once. No gradient
-        flows through the proposals."""
+        flows through the proposals.
+
+        ``MODEL.RPN.NMS_IMPL`` picks another selection when the anchor grid's
+        ``grid_hw`` is given (without it, every mode runs the exact path, as in the
+        JAX package): ``maxpool`` (``maxpool_train``: training passes only) keeps
+        the sigma-rescored local maxima of the grid (:mod:`..ops.maxpool_nms`), with
+        no NMS; ``hybrid`` drops the non-maxima of the anchor channels whose
+        one-cell diagonal neighbour still overlaps above the NMS threshold, then runs
+        the exact NMS on the top ``min(pre, max(2 post, 64))`` candidates.
+        """
         a = self.arch
         anchors, obj, deltas = anchors.detach(), obj.detach(), deltas.detach()
         r = obj.shape[1]
         pre = min(budget[0] if budget else a.rpn_pre_nms_topk[int(training)], r)
         post = budget[1] if budget else a.rpn_post_nms_topk[int(training)]
-        scores, idx = _top_desc(obj, pre)
-        d = _gather_rows(deltas, idx)                        # (N, pre, 8)
-        anc = anchors[idx]                                    # (N, pre, 4)
-        boxes, keep = self._decode_clip_filter(d, anc, image_hw[:, None, :])
-        keep &= torch.isfinite(scores)
-        rescale = 1.0 - torch.mean(torch.sigmoid(d[..., 4:]), dim=-1)
-        scores = scores * rescale
+        impl = a.rpn_nms_impl
+        hw = image_hw[:, None, :]
+        if grid_hw is not None and (impl == "maxpool" or (impl == "maxpool_train" and training)):
+            scores = obj * (1.0 - torch.mean(torch.sigmoid(deltas[..., 4:]), dim=-1))
+            kidx, kvalid = maxpool_nms_select(scores, grid_hw, self.A, post)
+            boxes, ok = self._decode_clip_filter(_gather_rows(deltas, kidx), anchors[kidx], hw)
+            return Proposals(boxes, _gather_rows(scores, kidx), kvalid & ok)
+        if grid_hw is not None and impl == "hybrid":
+            # safe channel: (1 + t)(w - s)(h - s) >= 2 t w h for the offset s = stride,
+            # which for w == h means min(w, h) >= s / (1 - sqrt(2 t / (1 + t)))
+            t = float(a.rpn_nms_thresh)
+            q = float(np.sqrt(2.0 * t / (1.0 + t)))
+            safe_min_wh = a.stride / max(1.0 - q, 1e-6)
+            cell = (anchors.reshape(grid_hw[0], grid_hw[1], self.A, 4)[0, 0]
+                    if anchors.ndim == 2 else anchors)
+            ch_safe = torch.minimum(cell[:, 2] - cell[:, 0], cell[:, 3] - cell[:, 1]) >= safe_min_wh
+            s_full = obj * (1.0 - torch.mean(torch.sigmoid(deltas[..., 4:]), dim=-1))
+            keep = maxpool_keep(s_full.reshape(-1, grid_hw[0], grid_hw[1], self.A),
+                                cross_anchor=False)
+            keep = (keep | ~ch_safe).reshape(s_full.shape)
+            scores, idx = _top_desc(torch.where(keep, s_full, torch.full_like(s_full,
+                                                                              float("-inf"))),
+                                    min(pre, max(2 * post, 64)))
+            boxes, keep = self._decode_clip_filter(_gather_rows(deltas, idx), anchors[idx], hw)
+            keep &= torch.isfinite(scores)
+        else:
+            scores, idx = _top_desc(obj, pre)
+            d = _gather_rows(deltas, idx)                        # (N, pre, 8)
+            boxes, keep = self._decode_clip_filter(d, anchors[idx], hw)
+            keep &= torch.isfinite(scores)
+            scores = scores * (1.0 - torch.mean(torch.sigmoid(d[..., 4:]), dim=-1))
         kidx, kvalid = nms(boxes, scores, keep, a.rpn_nms_thresh, post)
         return Proposals(_gather_rows(boxes, kidx), _gather_rows(scores, kidx), kvalid)
 
@@ -257,7 +293,7 @@ class PTDetector(nn.Module):
         obj, deltas = self.rpn_predict(feat)
         anchors = self.anchors(feat.shape[1], feat.shape[2])
         proposals = self.predict_proposals(anchors, obj, deltas, images.image_hw,
-                                           training=True, budget=budget)
+                                           training=True, grid_hw=feat.shape[1:3], budget=budget)
         det = self._roi_inference(feat, proposals, images.image_hw,
                                   nms_candidates=a.teacher_nms_candidates)
         return PseudoLabels(boxes=det.boxes, logits=det.logits, sigma=det.sigma,
@@ -270,7 +306,7 @@ class PTDetector(nn.Module):
         obj, deltas = self.rpn_predict(feat)
         anchors = self.anchors(feat.shape[1], feat.shape[2])
         proposals = self.predict_proposals(anchors, obj, deltas, images.image_hw,
-                                           training=False)
+                                           training=False, grid_hw=feat.shape[1:3])
         return self._roi_inference(feat, proposals, images.image_hw)
 
     def _roi_inference(self, feat: torch.Tensor, proposals: Proposals, image_hw: torch.Tensor,
@@ -322,7 +358,7 @@ class PTDetector(nn.Module):
     # -------------------------------------------------------- supervised losses
     def rpn_supervised_losses(self, anchors: torch.Tensor, obj: torch.Tensor,
                               deltas: torch.Tensor, gt: GroundTruth,
-                              draws: Union[SampleDraws, torch.Generator],
+                              draws: Rows,
                               image_hw: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Sampled BCE objectness + Gaussian/Laplace NLL box regression, both over
         (batch_per_image * N); ``draws`` are the anchor-sampling uniforms (N, R)."""
@@ -342,16 +378,17 @@ class PTDetector(nn.Module):
         gt_deltas = get_deltas(anchors_sg.expand_as(matched), matched, a.rpn_reg_weights)
         loc_loss = L.prob_box_nll_sum(deltas[..., :4], deltas[..., 4:], gt_deltas, pos,
                                       a.model_type)
-        normalizer = a.rpn_batch_per_image * n
+        n_all = global_sum(n)
+        normalizer = a.rpn_batch_per_image * n_all
         w = a.rpn_loss_weight
         return {
             "loss_rpn_cls": w * obj_loss / normalizer,
             "loss_rpn_loc": w * loc_loss / normalizer,
-            "rpn/num_pos_anchors": pos.sum() / n,
-            "rpn/num_neg_anchors": neg.sum() / n,
+            "rpn/num_pos_anchors": pos.sum() / n_all,
+            "rpn/num_neg_anchors": neg.sum() / n_all,
         }
 
-    def _sample_rois_sup(self, draws: Union[SampleDraws, torch.Generator],
+    def _sample_rois_sup(self, draws: Rows,
                          proposals: Proposals, gt: GroundTruth):
         """Append the ground truth, IoU-match, and sample ``roi_batch_per_image`` rows
         per image with the positive fraction; ``draws`` are (N, P + G) uniforms."""
@@ -388,18 +425,19 @@ class PTDetector(nn.Module):
         loss_cls = L.softmax_cross_entropy_mean(scores, s_cls, s_valid)
         sel = _pick_class(pdeltas.reshape(n, s, k, 8), torch.clamp(s_cls, 0, k - 1))
         gt_deltas = get_deltas(s_boxes, s_matched, a.roi_reg_weights)
-        total = torch.clamp(s_valid.float().sum(), min=1.0)
+        total = torch.clamp(global_sum(s_valid.float().sum()), min=1.0)
         loss_box = L.prob_box_nll_sum(sel[..., :4], sel[..., 4:], gt_deltas, s_fg,
                                       a.model_type) / total
+        n_all = global_sum(n)
         return {
             "loss_cls": loss_cls,
             "loss_box_reg": loss_box,
-            "roi_head/num_fg_samples": s_fg.sum() / n,
-            "roi_head/num_bg_samples": (s_valid & ~s_fg).sum() / n,
+            "roi_head/num_fg_samples": s_fg.sum() / n_all,
+            "roi_head/num_bg_samples": (s_valid & ~s_fg).sum() / n_all,
         }
 
     def roi_supervised_losses(self, feat: torch.Tensor, proposals: Proposals, gt: GroundTruth,
-                              draws: Union[SampleDraws, torch.Generator]
+                              draws: Rows
                               ) -> Dict[str, torch.Tensor]:
         s_boxes, s_cls, s_fg, s_matched, s_valid = self._sample_rois_sup(draws, proposals, gt)
         scores, pdeltas = self.roi_predict(feat, s_boxes)
@@ -414,8 +452,10 @@ class PTDetector(nn.Module):
         obj, deltas = self.rpn_predict(feat)
         anchors = self.anchors(feat.shape[1], feat.shape[2]).detach()
         losses = self.rpn_supervised_losses(anchors, obj, deltas, gt, d_rpn, images.image_hw)
-        proposals = self.predict_proposals(anchors, obj, deltas, images.image_hw, training=True)
-        losses["rpn/num_valid_proposals"] = proposals.valid.float().sum() / proposals.valid.shape[0]
+        proposals = self.predict_proposals(anchors, obj, deltas, images.image_hw, training=True,
+                                           grid_hw=feat.shape[1:3])
+        losses["rpn/num_valid_proposals"] = (proposals.valid.float().sum()
+                                             / global_sum(proposals.valid.shape[0]))
         losses.update(self.roi_supervised_losses(feat, proposals, gt, d_roi))
         return losses
 
@@ -439,7 +479,7 @@ class PTDetector(nn.Module):
         t_sigma = _gather_rows(pseudo.sigma, midx)
         t_boxes = _gather_rows(pseudo.boxes, midx)
         fg = t_logits.argmax(-1) != k
-        normalizer = a.rpn_batch_per_image * n
+        normalizer = a.rpn_batch_per_image * global_sum(n)
         loss_rpn_cls = L.rpn_soft_cls_loss(obj, t_logits, amask, a.tau[0], a.efl,
                                            a.efl_lambda[0]) / normalizer
         mean_p = get_deltas(anchors.expand_as(t_boxes), t_boxes, a.rpn_reg_weights)
@@ -489,7 +529,7 @@ class PTDetector(nn.Module):
         losses = self._rpn_unsup_losses(anchors, anchors_sg, obj, deltas, pseudo,
                                         images.image_hw)
         proposals = self.predict_proposals(anchors_sg, obj, deltas, images.image_hw,
-                                           training=True)
+                                           training=True, grid_hw=feat.shape[1:3])
         k_boxes, k_pboxes, k_logits, k_sigma, k_valid = self._keep_rois_unsup(proposals, pseudo)
         scores, pdeltas = self.roi_predict(feat, k_boxes)
         losses.update(self._roi_unsup_loss_tail(scores, pdeltas, k_boxes, k_pboxes, k_logits,
@@ -525,11 +565,11 @@ class PTDetector(nn.Module):
         unsup = self._rpn_unsup_losses(anchors, anchors_sg, obj[nl:], deltas[nl:], pseudo,
                                        images.image_hw[nl:])
         proposals = self.predict_proposals(anchors_sg, obj, deltas, images.image_hw,
-                                           training=True)
+                                           training=True, grid_hw=feat.shape[1:3])
         prop_l = Proposals(*(x[:nl] for x in proposals))
         prop_u = Proposals(*(x[nl:] for x in proposals))
-        sup["rpn/num_valid_proposals"] = prop_l.valid.float().sum() / nl
-        unsup["rpn/num_valid_proposals"] = prop_u.valid.float().sum() / nu
+        sup["rpn/num_valid_proposals"] = prop_l.valid.float().sum() / global_sum(nl)
+        unsup["rpn/num_valid_proposals"] = prop_u.valid.float().sum() / global_sum(nu)
         s_boxes, s_cls, s_fg, s_matched, s_valid = self._sample_rois_sup(d_roi, prop_l, gt_l)
         k_boxes, k_pboxes, k_logits, k_sigma, k_valid = self._keep_rois_unsup(prop_u, pseudo)
         if s_boxes.shape[1] == k_boxes.shape[1]:

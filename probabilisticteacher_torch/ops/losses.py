@@ -6,6 +6,11 @@ are kept as they are, because without them masked rows give NaN gradients in
 PyTorch just as in JAX: the double ``where`` around ``p * log p`` in the EFL
 weight, the ``+ 1e-9`` inside every log, and the empty-set normalizers clamped
 to 1.
+
+Each data-dependent normalizer is a count over the global batch: inside a data
+parallel train step, ``parallel.mesh.global_sum`` sums it over the ranks before
+the clamp, as the JAX package counts over the batch it shards (a world of one,
+and anything outside a train step, counts its own rows).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import global_sum
 from .box_regression import gaussian_dist_pdf, laplace_dist_pdf
 
 
@@ -22,7 +28,7 @@ def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(mask.float().sum(), min=1.0)
+    return torch.clamp(global_sum(mask.float().sum()), min=1.0)
 
 
 def binary_cross_entropy_with_logits_sum(logits: torch.Tensor, targets: torch.Tensor,
@@ -127,7 +133,7 @@ def kl_consistency_box_loss(mean_q: torch.Tensor, sigma_q_raw: torch.Tensor,
         loss = loss * w
     loss = torch.where(mask[..., None], loss, torch.zeros_like(loss))
     if reduction == "mean":
-        n = torch.clamp(mask.float().sum() * loss.shape[-1], min=1.0)
+        n = torch.clamp(global_sum(mask.float().sum()) * loss.shape[-1], min=1.0)
         return loss.sum() / n
     return loss.sum()
 

@@ -22,14 +22,39 @@ class SampleDraws(NamedTuple):
     neg: torch.Tensor
 
 
+class RowDraws(NamedTuple):
+    """One rank's share of a global batch's draws: the uniforms of ``total`` rows are
+    drawn from ``generator``, as one process over the whole batch would draw them,
+    and the rows ``rows`` are kept."""
+
+    generator: torch.Generator
+    rows: torch.Tensor
+    total: int
+
+
 def draw_uniforms(shape, generator: Optional[torch.Generator], device) -> SampleDraws:
     """Fresh uniforms for :func:`subsample_labels` over ``shape`` = (..., N)."""
     return SampleDraws(torch.rand(shape, generator=generator, device=device),
                        torch.rand(shape, generator=generator, device=device))
 
 
+def draw_rows(draws: RowDraws, shape, device) -> SampleDraws:
+    """The uniforms of ``draws.rows`` for ``shape`` = (len(rows), N)."""
+    if len(draws.rows) != shape[0]:
+        raise ValueError(f"{len(draws.rows)} rows of draws for {shape[0]} rows")
+    u = draw_uniforms((draws.total, *shape[1:]), draws.generator, device)
+    rows = draws.rows.to(device)
+    return SampleDraws(u.pos[rows], u.neg[rows])
+
+
+def top_desc(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last dim: descending, the lower index first among ties."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def _top_idx(keys: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.sort(keys, dim=-1, descending=True, stable=True)[1][..., :k]
+    return top_desc(keys, k)[1]
 
 
 def _mask_from_top(keys: torch.Tensor, eligible: torch.Tensor, k: int,

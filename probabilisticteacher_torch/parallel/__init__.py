@@ -1,3 +1,3 @@
-"""Host-to-device input pipelining (one process, one card)."""
+"""Host-to-device input pipelining and data parallel over ranks."""
 
 from .prefetch import DevicePrefetcher, host_to_device  # noqa: F401

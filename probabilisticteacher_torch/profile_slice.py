@@ -61,7 +61,8 @@ def _staged(det: PTDetector, batch: ImageBatch, training: bool):
         obj, deltas = det.rpn_predict(feat)
         mark("rpn_head")
         anchors = det.anchors(feat.shape[1], feat.shape[2])
-        props = det.predict_proposals(anchors, obj, deltas, batch.image_hw, training)
+        props = det.predict_proposals(anchors, obj, deltas, batch.image_hw, training,
+                                      grid_hw=feat.shape[1:3])
         mark("proposals_topk_decode_nms")
         pooled = roi_align(feat, props.boxes, 1.0 / a.stride, a.pooler_resolution,
                            a.pooler_sampling_ratio)
@@ -84,7 +85,7 @@ TRAIN_N, GT_PER_IMAGE = 16, 20
 PATHS = ("detect", "pseudo_labels", "burnin_step", "mutual_step")
 
 
-def _profile(fn):
+def profile_call(fn):
     """Device time by kernel and by ``aten::`` operator over one call of ``fn``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -135,7 +136,7 @@ def _inference(path, det, batch, card):
     stages = [_staged(det, batch, training) for _ in range(REPS)]
     mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
     calls = _host_ms(lambda: fn(batch), REPS)
-    prof, kernel_rows = _profile(lambda: fn(batch))
+    prof, kernel_rows = profile_call(lambda: fn(batch))
     return {"path": path, "batch": BATCH, "card": card, "stages_ms": mean,
             "roi_align_fwd_ms": kernel_ms(kernel_rows, KERNEL_ROWS["roi_align_fwd_ms"]),
             "call_ms": calls, **prof}
@@ -197,7 +198,7 @@ def _train(path, cfg, card):
     stages = [staged() for _ in range(REPS)]
     mean = {k: sum(s[k] for s in stages) / len(stages) for k in stages[0]}
     calls = _host_ms(one, REPS)
-    prof, kernel_rows = _profile(one)
+    prof, kernel_rows = profile_call(one)
     n_img = TRAIN_N if path == "burnin_step" else 2 * TRAIN_N
     return {"path": path, "labeled": TRAIN_N, "unlabeled": 0 if path == "burnin_step" else TRAIN_N,
             "card": card, "stages_ms": mean,

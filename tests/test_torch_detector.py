@@ -180,3 +180,20 @@ def test_predictor_matches_jax_predictor(pair):
     np.testing.assert_array_equal(got["classes"], want["classes"])
     np.testing.assert_allclose(got["scores"], want["scores"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=1e-3)
+
+
+def test_features_run_the_frozen_stem_in_chunks(pair, monkeypatch):
+    """A batch larger than ``STEM_CHUNK`` goes through the frozen stem a chunk at a
+    time (and its ReLUs in place): the same features as one pass, to the CPU's
+    batch-size rounding, and JAX's."""
+    from probabilisticteacher_torch.modeling import backbone
+
+    jdet, params, _, tdet, jb, tb = pair
+    with torch.no_grad():
+        whole = tdet.features(tb)
+        monkeypatch.setattr(backbone, "STEM_CHUNK", 1)
+        chunked = tdet.features(tb)
+    assert chunked.is_contiguous(memory_format=torch.contiguous_format)
+    scale = float(whole.abs().max())
+    _close(chunked, whole, rtol=0, atol=1e-6 * scale)
+    _close(chunked, jdet.features(params, jb), rtol=RTOL, atol=ATOL * scale)

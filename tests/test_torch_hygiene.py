@@ -3,10 +3,11 @@
 - every module of ``probabilisticteacher_torch`` and every import of
   ``chip_smoke.py`` loads without JAX, flax or the JAX package (checked in a fresh
   interpreter, since this test process has JAX loaded);
-- entry points (detector, Predictor, trainer, CLI) default to the card and raise
-  when there is none, unless the caller asks for the CPU;
-- approximate RPN NMS modes that are not ported raise instead of running the
-  exact NMS under their name.
+- entry points (detector, Predictor, trainer, CLI, ``make_mesh``) default to the
+  card and raise when there is none, unless the caller asks for the CPU;
+- an RPN NMS mode the port does not know raises instead of running the exact NMS
+  under its name (the levers themselves are held to JAX in
+  ``tests/test_torch_levers.py``).
 """
 
 import os
@@ -20,6 +21,7 @@ from probabilisticteacher_torch import config as tcfg
 from probabilisticteacher_torch import train_net
 from probabilisticteacher_torch.engine.trainer import PTrainer, trainer_device
 from probabilisticteacher_torch.modeling.detector import PTDetector
+from probabilisticteacher_torch.parallel.mesh import make_mesh
 from probabilisticteacher_torch.predictor import Predictor
 from probabilisticteacher_torch.structures import resolve_device
 
@@ -45,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK.format(repo=REPO)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40   # every module of the three slices was imported
+    # every module of the slices was imported, the mesh and the levers' modules too
+    assert int(out.stdout.split()[-1]) >= 43
 
 
 def test_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
@@ -65,15 +68,17 @@ def test_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
         PTrainer(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_net.main(train_net.parse_args(["OUTPUT_DIR", str(tmp_path / "cli")]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    assert make_mesh("cpu").device == torch.device("cpu")
     assert trainer_device("cpu") == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     assert PTDetector(tcfg.Arch(vgg_depth=11, fc_dim=8), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("impl", ["maxpool", "maxpool_train", "hybrid"])
-def test_unported_nms_modes_raise(impl):
-    with pytest.raises(NotImplementedError, match="A13"):
-        PTDetector(tcfg.Arch(vgg_depth=11, fc_dim=8, rpn_nms_impl=impl), device="cpu")
+def test_unknown_nms_mode_raises():
+    with pytest.raises(ValueError, match="NMS_IMPL 'maxpol'"):
+        PTDetector(tcfg.Arch(vgg_depth=11, fc_dim=8, rpn_nms_impl="maxpol"), device="cpu")
 
 
 def test_seeded_init_is_deterministic():

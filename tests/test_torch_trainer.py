@@ -33,6 +33,7 @@ from probabilisticteacher_torch.engine.steps import create_train_state
 from probabilisticteacher_torch.engine.trainer import PTrainer, StepMetrics
 from probabilisticteacher_torch.events import EventStorage
 from probabilisticteacher_torch.modeling.detector import PTDetector
+from probabilisticteacher_torch.parallel.mesh import Mesh
 from probabilisticteacher_torch.solver import build_lr_schedule, build_optimizer
 from synthetic_data import CLASSES
 from torch_micro import micro_opts, register_both, voc_tree
@@ -207,6 +208,7 @@ def _mini_trainer(tmp_path, step=0):
         iter = 0
         writers = []
         device = torch.device("cpu")
+        mesh = Mesh(0, 1, device)
         state = create_train_state(det, build_optimizer(get_cfg(), det))
 
     os.makedirs(Cfg.OUTPUT_DIR, exist_ok=True)
