@@ -73,14 +73,14 @@ Phases (each failure exits non-zero; none is caught and passed over):
    ``mutual_step``, each from the seeded weights, at the recipe's full width
    (global 16 + 16 images, 8 + 8 per rank; class and objectness weights scaled
    and proposals under 2 px dropped, as in phase 7) against one process over the
-   global batch: metrics within 1e-4
-   relative, each summed gradient within 1e-3 of its L2 norm (phase 7's limits).
-   Then 3 bf16 mutual steps per rank: finite, the replicas bit-identical after each
-   step; ms per step per rank and of the gradient all-reduce (the two ranks share
-   the card, so this is no scaling figure). With two or more cards, the same
-   comparison over NCCL across two cards. (b) the CLI with ``--num-gpus
-   <device count>`` on phase 8's tree: on one card a world of one through the
-   launch path, in this process; it prints the world sizes and backends it ran;
+   global batch: metrics within 1e-4 relative, each summed gradient within 1e-3
+   of its L2 norm (phase 7's limits). Then 3 bf16 mutual steps per rank: finite,
+   the replicas bit-identical after each step; ms per step per rank and of the
+   gradient all-reduce (the two ranks share the card, so this is no scaling
+   figure). With two or more cards, the same comparison over NCCL across two
+   cards. The phase prints the world sizes and backends it ran. (b) the CLI with
+   ``--num-gpus <device count>`` on phase 8's tree: on one card a world of one
+   through the launch path, in this process;
 10. the opt-in levers at full width (bf16, 8 images for inference, 16 + 16 for a
    step), under each ``MODEL.RPN.NMS_IMPL`` of greedy, maxpool, maxpool_train and
    hybrid: ``predict_proposals`` (test and train budgets: valid, finite proposals
