@@ -89,7 +89,22 @@ Phases (each failure exits non-zero; none is caught and passed over):
    ``mutual_step``, with ms per call and K3's device ms from ``torch.profiler``;
    then one mutual step with ``MODEL.BACKBONE.REMAT`` off and on: gradients within
    1e-3 of their L2 norm, a lower peak memory with REMAT on, and both times;
-11. one JSON line of the kernels' launches (by path, the phases 9-10 paths
+11. the accuracy proxy's runner, ``probabilisticteacher_torch/accuracy_proxy.py``:
+   its ``campaign`` at a small depth on a proxy written by
+   ``scripts/make_daod_proxy.py`` (32 + 32 training and 8 + 8 val images of 480 x
+   960), each stage's ``train_net.main`` in this process through the runner's own
+   override list (the recipe at full width, VGG16, AMP bf16, 16 + 16 images,
+   canvas 480 x 992): 20 source-only iterations, then 20 PT iterations from stage 1's
+   final checkpoint with ``BURN_UP_STEP`` 10, evals every 10. Checks: losses and
+   the eval metrics of each stage finite (the foggy and the clean val split in stage
+   1; teacher, student and pseudo boxes in stage 2), stage 2's student and teacher
+   loaded by ``MODEL.WEIGHTS`` equal to stage 1's final ones bit for bit, the teacher
+   after step 10 equal to the student before it bit for bit, and each kernel launched
+   in each stage. Prints each stage's iterations per second, data wait, eval
+   images/s and peak memory; then each kernel against its plain version and timed at
+   the proxy's shapes (a 30 x 62 map): K1 at (48, 512) and (16, 2000) ROIs, K2 at
+   (48, 512) and (32, 512), K3 at 48 and 16 x 12000 -> 2000 and 16 x 16000 -> 100;
+12. one JSON line of the kernels' launches (by path, the phases 9-11 paths
    included), error, time (CUDA events), bound and plain-version time. No kernel
    has one PyTorch call that computes the same function (core PyTorch has no
    ROIAlign, ROIAlign backward or NMS), so ``library_ms`` is null.
@@ -221,20 +236,8 @@ def phase_roi_align(dev) -> dict:
         result[str(dtype)[6:]] = err
     main = time_k1("inference", feat32.to(torch.bfloat16), boxes, reps=20, plain_reps=3)
     del feat32
-    cases = {}
-    for label, n, r in FWD_STEP_CASES:
-        boxes_s = roi_boxes(gen, n, r, h, w).to(dev)
-        feat = torch.randn(n, h, w, c, generator=gen).to(dev, torch.bfloat16)
-        got = roi_align_cuda.roi_align(feat, boxes_s, 1.0 / 16, 7, 2)
-        want = roi_align_batched(feat, boxes_s, 1.0 / 16, 7, 2)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(err <= 2e-2 * feat.float().abs().max().item(),
-              f"roi_align bf16 differs from its plain version ({label})")
-        del got, want
-        cases[label] = {"rois": [n, r], "max_abs_err": err,
-                        **time_k1(label, feat, boxes_s, reps=10, plain_reps=1)}
-        del feat, boxes_s
+    cases = {label: fwd_check_and_time(dev, gen, label, n, r, FEAT)
+             for label, n, r in FWD_STEP_CASES}
     return {"name": "roi_align_fwd", "route": "cuda",
             "source": "probabilisticteacher_torch/csrc/roi_align_fwd.cu",
             "replaces": "probabilisticteacher_tpu/ops/roi_align_pallas.py:70",
@@ -242,6 +245,23 @@ def phase_roi_align(dev) -> dict:
             **main, "library_ms": None, "cases": cases,
             "shape": "features (8, 38, 84, 512) bf16, boxes (8, 2000, 4) (ms, plain_ms, "
                      "bound_ms); the train step's shapes in cases"}
+
+
+def fwd_check_and_time(dev, gen, label: str, n: int, r: int, feat_hwc) -> dict:
+    """K1 in bf16 on (n, r) ROIs over an (n, *feat_hwc) map against its plain version
+    (2e-2 * max|F|), then both timed."""
+    h, w, c = feat_hwc
+    boxes = roi_boxes(gen, n, r, h, w).to(dev)
+    feat = torch.randn(n, h, w, c, generator=gen).to(dev, torch.bfloat16)
+    got = roi_align_cuda.roi_align(feat, boxes, 1.0 / 16, 7, 2)
+    want = roi_align_batched(feat, boxes, 1.0 / 16, 7, 2)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= 2e-2 * feat.float().abs().max().item(),
+          f"roi_align bf16 differs from its plain version ({label})")
+    del got, want
+    return {"rois": [n, r], "map": [h, w], "max_abs_err": err,
+            **time_k1(label, feat, boxes, reps=10, plain_reps=1)}
 
 
 def time_k1(label: str, feat: torch.Tensor, boxes: torch.Tensor, reps: int,
@@ -265,9 +285,11 @@ def time_k1(label: str, feat: torch.Tensor, boxes: torch.Tensor, reps: int,
 
 
 # --------------------------------------------------------------------- phase 3
-def nms_case(gen: torch.Generator, n: int, k: int):
-    """Clustered proposal-like boxes, bf16-rounded scores (ties), duplicates, chains."""
-    centers = torch.rand(n, k // 25 + 1, 2, generator=gen) * torch.tensor([1344.0, 608.0])
+def nms_case(gen: torch.Generator, n: int, k: int, canvas=CANVAS):
+    """Clustered proposal-like boxes on an (h, w) ``canvas``, bf16-rounded scores (ties),
+    duplicates, chains."""
+    centers = torch.rand(n, k // 25 + 1, 2, generator=gen) * torch.tensor(
+        [float(canvas[1]), float(canvas[0])])
     pick = torch.randint(0, centers.shape[1], (n, k), generator=gen)
     xy = torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
     xy = xy + torch.randn(n, k, 2, generator=gen) * 20
@@ -300,42 +322,49 @@ def iou_pairs(boxes_s, keep, valid_s, thresh) -> int:
     return total
 
 
+def nms_check_and_time(dev, gen, label, n, k, max_keep, thresh, classes,
+                       canvas=CANVAS) -> dict:
+    """One NMS case: the kernel's keep set against the plain version's (exactly equal),
+    then both timed and the bound from the IoU pairs this data needs."""
+    boxes, scores, valid = (x.to(dev) for x in nms_case(gen, n, k, canvas))
+    if classes:
+        cls = torch.randint(0, classes, (n, k), generator=gen).to(dev)
+        got = nms_cuda.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
+        want = plain_nms.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
+        boxes = plain_nms.class_offset_boxes(boxes, cls, valid)
+    else:
+        got = nms_cuda.nms(boxes, scores, valid, thresh, max_keep)
+        want = plain_nms.nms(boxes, scores, valid, thresh, max_keep)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    kept = int(got[1].sum())
+    log(f"[nms] {label} {n}x{k}->{max_keep} @{thresh}: kept {kept} "
+        f"({kept / n!r} per image), indices and valid masks equal: {same}")
+    check(same, f"nms kernel keep set differs from the plain version ({label})")
+    check(kept > 0, f"nms kept nothing ({label})")
+    order, b_s, a_s, v_s = plain_nms.sort_by_score(boxes, scores, valid)
+    keep = nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep)
+    ms = cuda_ms(lambda: nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep), reps=10)
+    # the plain scan takes ~1 s at 48 images: one timed call there
+    plain_ms = cuda_ms(lambda: plain_nms.greedy_keep(b_s, a_s, v_s, thresh, max_keep),
+                       reps=1 if n > 16 else 2, warm=0 if n > 16 else 1)
+    pairs = iou_pairs(b_s, keep, v_s, thresh)
+    nbytes = n * k * (16 + 4 + 1 + 1)
+    ops = pairs * IOU_OPS
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    log(f"[nms] {label}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
+        f"({pairs} IoU pairs, {nbytes} B)")
+    return {"images": n, "k": k, "max_keep": max_keep, "thresh": thresh,
+            "kept": kept, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+            else "operations"}
+
+
 def phase_nms(dev) -> dict:
     gen = torch.Generator().manual_seed(2)
     out = {}
     for label, n, k, max_keep, thresh, classes in NMS_CASES:
-        boxes, scores, valid = (x.to(dev) for x in nms_case(gen, n, k))
-        if classes:
-            cls = torch.randint(0, classes, (n, k), generator=gen).to(dev)
-            got = nms_cuda.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
-            want = plain_nms.batched_nms(boxes, scores, cls, valid, thresh, max_keep)
-            boxes = plain_nms.class_offset_boxes(boxes, cls, valid)
-        else:
-            got = nms_cuda.nms(boxes, scores, valid, thresh, max_keep)
-            want = plain_nms.nms(boxes, scores, valid, thresh, max_keep)
-        torch.cuda.synchronize()
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        kept = int(got[1].sum())
-        log(f"[nms] {label} {n}x{k}->{max_keep} @{thresh}: kept {kept} "
-            f"({kept / n!r} per image), indices and valid masks equal: {same}")
-        check(same, f"nms kernel keep set differs from the plain version ({label})")
-        check(kept > 0, f"nms kept nothing ({label})")
-        order, b_s, a_s, v_s = plain_nms.sort_by_score(boxes, scores, valid)
-        keep = nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep)
-        ms = cuda_ms(lambda: nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep), reps=10)
-        # the plain scan takes ~1 s at 48 images: one timed call there
-        plain_ms = cuda_ms(lambda: plain_nms.greedy_keep(b_s, a_s, v_s, thresh, max_keep),
-                           reps=1 if n > 16 else 2, warm=0 if n > 16 else 1)
-        pairs = iou_pairs(b_s, keep, v_s, thresh)
-        nbytes = n * k * (16 + 4 + 1 + 1)
-        ops = pairs * IOU_OPS
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        log(f"[nms] {label}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
-            f"({pairs} IoU pairs, {nbytes} B)")
-        out[label] = {"images": n, "k": k, "max_keep": max_keep, "thresh": thresh,
-                      "kept": kept, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-                      else "operations"}
+        out[label] = nms_check_and_time(dev, gen, label, n, k, max_keep, thresh, classes)
     rpn = out["rpn"]
     return {"name": "nms_keep", "route": "cuda", "source": "probabilisticteacher_torch/csrc/nms.cu",
             "replaces": "probabilisticteacher_tpu/ops/nms_pallas.py:54", "max_abs_err": 0.0,
@@ -497,58 +526,62 @@ def bwd_design_bytes(wy: torch.Tensor, wx: torch.Tensor, plan, bin_bytes: int) -
     return int((reads - 1).clamp(min=0).sum()) * bin_bytes
 
 
+def bwd_check_and_time(dev, label: str, n: int, r: int, feat_hwc) -> dict:
+    """K2 on (n, r) ROIs into an (n, *feat_hwc) dF against its plain version in f32
+    (1e-5 * max|dF|) and bf16 (2e-2 * max|dF|), bit-identical in two runs, then timed
+    with its bound and ``design_bytes``."""
+    h, w, c = feat_hwc
+    gen = torch.Generator(device=dev).manual_seed(7)
+    boxes = roi_boxes(torch.Generator().manual_seed(7), n, r, h, w).to(dev)
+    g32 = torch.randn(n, r, 7, 7, c, generator=gen, device=dev)
+    g32[:, r - 40:] = 0                # padded ROI rows: the masked losses give them 0
+    err, rerun = {}, {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        g = g32.to(dtype)
+        got = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7, 2)
+        again = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7,
+                                                  2)
+        wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, dtype)
+        want = roi_align_bwd_plain(wy, wx, g)
+        torch.cuda.synchronize()
+        name = str(dtype)[6:]
+        scale = want.float().abs().max().item()
+        err[name] = (got.float() - want.float()).abs().max().item()
+        rerun[name] = (got.float() - again.float()).abs().max().item()
+        log(f"[roi_align_bwd] {label} {name}: max|kernel - plain| = {err[name]!r} (limit "
+            f"{tol} * max|dF| = {tol * scale!r}); two kernel runs differ by {rerun[name]!r}")
+        check(got.shape == (n, h, w, c) and got.dtype == dtype, "roi_align_bwd output shape")
+        check(bool(torch.isfinite(got).all()), "roi_align_bwd output not finite")
+        check(err[name] <= tol * scale, f"roi_align_bwd {dtype} differs from its plain version")
+        check(torch.equal(got, again), f"roi_align_bwd {dtype}: two runs differ ({label})")
+        del got, again, want
+    g = g32.to(torch.bfloat16)
+    del g32
+    wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, torch.bfloat16)
+    ms = cuda_ms(lambda: roi_align_cuda.roi_align_backward(
+        g, boxes, (n, h, w, c), torch.bfloat16, 1.0 / 16, 7, 2), reps=10)
+    plain_ms = cuda_ms(lambda: roi_align_bwd_plain(wy, wx, g), reps=3, warm=1)
+    taps = bwd_taps(wy, wx, g)
+    # the function's bytes: g and the boxes read, dF written; the design reads
+    # again the g of a bin whose taps reach more than one tile
+    nbytes = g.numel() * 2 + boxes.numel() * 4 + n * h * w * c * 2
+    plan = roi_align_cuda.bwd_plan(h, w, c, 7)
+    design_bytes = bwd_design_bytes(wy, wx, plan, c * 2)
+    ops = taps * c * 2                 # a multiply and an add per channel and tap
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    log(f"[roi_align_bwd] {label} bf16 ({n}, {r}) ROIs: kernel {ms!r} ms, plain "
+        f"{plain_ms!r} ms, bound {bound_ms!r} ms ({nbytes} B, {taps} taps, {ops} f32 ops); "
+        f"tiles {plan.tiles_y} x {plan.tiles_x} of {plan.th} x {plan.tw}, design_bytes "
+        f"{design_bytes}")
+    return {"rois": [n, r], "map": [h, w], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "design_bytes": design_bytes, "max_abs_err": err,
+            "run_to_run_max_abs_diff": rerun,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+            else "operations"}
+
+
 def phase_roi_align_bwd(dev) -> dict:
-    h, w, c = FEAT
-    cases = {}
-    for label, n, r in BWD_CASES:
-        gen = torch.Generator(device=dev).manual_seed(7)
-        boxes = roi_boxes(torch.Generator().manual_seed(7), n, r, h, w).to(dev)
-        g32 = torch.randn(n, r, 7, 7, c, generator=gen, device=dev)
-        g32[:, r - 40:] = 0                # padded ROI rows: the masked losses give them 0
-        err, rerun = {}, {}
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            g = g32.to(dtype)
-            got = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7, 2)
-            again = roi_align_cuda.roi_align_backward(g, boxes, (n, h, w, c), dtype, 1.0 / 16, 7,
-                                                      2)
-            wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, dtype)
-            want = roi_align_bwd_plain(wy, wx, g)
-            torch.cuda.synchronize()
-            name = str(dtype)[6:]
-            scale = want.float().abs().max().item()
-            err[name] = (got.float() - want.float()).abs().max().item()
-            rerun[name] = (got.float() - again.float()).abs().max().item()
-            log(f"[roi_align_bwd] {label} {name}: max|kernel - plain| = {err[name]!r} (limit "
-                f"{tol} * max|dF| = {tol * scale!r}); two kernel runs differ by {rerun[name]!r}")
-            check(got.shape == (n, h, w, c) and got.dtype == dtype, "roi_align_bwd output shape")
-            check(bool(torch.isfinite(got).all()), "roi_align_bwd output not finite")
-            check(err[name] <= tol * scale, f"roi_align_bwd {dtype} differs from its plain version")
-            check(torch.equal(got, again), f"roi_align_bwd {dtype}: two runs differ ({label})")
-            del got, again, want
-        g = g32.to(torch.bfloat16)
-        del g32
-        wy, wx = batched_pool_matrices(boxes, h, w, 1.0 / 16, 7, 2, torch.bfloat16)
-        ms = cuda_ms(lambda: roi_align_cuda.roi_align_backward(
-            g, boxes, (n, h, w, c), torch.bfloat16, 1.0 / 16, 7, 2), reps=10)
-        plain_ms = cuda_ms(lambda: roi_align_bwd_plain(wy, wx, g), reps=3, warm=1)
-        taps = bwd_taps(wy, wx, g)
-        # the function's bytes: g and the boxes read, dF written; the design reads
-        # again the g of a bin whose taps reach more than one tile
-        nbytes = g.numel() * 2 + boxes.numel() * 4 + n * h * w * c * 2
-        plan = roi_align_cuda.bwd_plan(h, w, c, 7)
-        design_bytes = bwd_design_bytes(wy, wx, plan, c * 2)
-        ops = taps * c * 2                 # a multiply and an add per channel and tap
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        log(f"[roi_align_bwd] {label} bf16 ({n}, {r}) ROIs: kernel {ms!r} ms, plain "
-            f"{plain_ms!r} ms, bound {bound_ms!r} ms ({nbytes} B, {taps} taps, {ops} f32 ops); "
-            f"tiles {plan.tiles_y} x {plan.tiles_x} of {plan.th} x {plan.tw}, design_bytes "
-            f"{design_bytes}")
-        cases[label] = {"rois": [n, r], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "design_bytes": design_bytes, "max_abs_err": err,
-                        "run_to_run_max_abs_diff": rerun,
-                        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-                        else "operations"}
-        del g, wy, wx
+    cases = {label: bwd_check_and_time(dev, label, n, r, FEAT) for label, n, r in BWD_CASES}
     st = cases[BWD_CASES[0][0]]
     return {"name": "roi_align_bwd", "route": "cuda",
             "source": "probabilisticteacher_torch/csrc/roi_align_bwd.cu",
@@ -1425,6 +1458,147 @@ def phase_remat(dev, limg, lgt, uimg):
              "stages_gib_on": on["stages_gib"], "grad_err": err}, launches)
 
 
+# --------------------------------------------------------------------- phase 11
+# the accuracy proxy's campaign at a small depth: make_daod_proxy.py's 480 x 960
+# images, 32 + 32 to train on and 8 + 8 to evaluate; 20 source-only iterations, then
+# 20 PT iterations (BURN_UP_STEP 10) from stage 1's final checkpoint, evals every 10
+PROXY_ARGS = ("--iters", "20", "--burn", "10", "--eval-period", "10", "--n-train", "32",
+              "--n-val", "8")
+PROXY_CANVAS = (480, 992)
+PROXY_FEAT = (30, 62, 512)          # the proxy's canvas over stride 16
+# the kernels at the proxy's shapes: K1 in the student and teacher passes, K2 in the
+# mutual and burn-in backward, K3 in the student's and teacher's RPN and the teacher's
+# class-aware NMS
+PROXY_FWD = (("proxy_student", 48, 512), ("proxy_teacher", 16, 2000))
+PROXY_BWD = (("proxy_student", 48, 512), ("proxy_burnin", 32, 512))
+PROXY_NMS = (("proxy_rpn_student", 48, 12000, 2000, 0.7, 0),
+             ("proxy_rpn_teacher", 16, 12000, 2000, 0.7, 0),
+             ("proxy_class_teacher", 16, 16000, 100, 0.5, 8))
+
+
+class BoundaryProbe:
+    """A trainer hook: the student before step ``BURN_UP_STEP`` and the teacher after
+    it, which the boundary copy makes equal."""
+
+    def __init__(self):
+        self.trainer = None
+        self.student = self.teacher = None
+
+    def before_train(self):
+        pass
+
+    def after_train(self):
+        pass
+
+    def before_step(self):
+        t = self.trainer
+        if t.iter == t.burn_up:
+            self.student = {k: v.clone() for k, v in t.state.student.state_dict().items()}
+
+    def after_step(self):
+        t = self.trainer
+        if t.iter == t.burn_up:
+            self.teacher = {k: v.clone() for k, v in t.state.teacher.state_dict().items()}
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def phase_proxy(dev) -> dict:
+    """The accuracy-proxy runner's campaign at a small depth, each stage's
+    ``train_net.main`` in this process (see the module docstring, phase 11)."""
+    import shutil
+    import tempfile
+
+    from probabilisticteacher_torch import accuracy_proxy, train_net
+    from probabilisticteacher_torch.data.datasets import CLASS_NAMES_8, register_pascal_voc
+    from probabilisticteacher_torch.engine import trainer as trainer_mod
+
+    work = tempfile.mkdtemp(prefix="pt_chip_proxy_")
+    orig_hooks = trainer_mod.PTrainer.build_hooks
+    orig_resume = trainer_mod.PTrainer.resume_or_load
+    try:
+        args = accuracy_proxy.build_parser(campaign=True).parse_args(list(PROXY_ARGS) + [
+            "--data", os.path.join(work, "data"), "--out-root", os.path.join(work, "runs"),
+            "--archive", os.path.join(work, "archive")])
+        t0 = time.perf_counter()
+        accuracy_proxy.ensure_data(args)
+        log(f"[proxy] make_daod_proxy.py wrote {2 * args.n_train} + {2 * args.n_val} "
+            f"{args.hw[1]}x{args.hw[0]} images in {time.perf_counter() - t0!r} s")
+        # phase 8 registered the builtin names on its own tree: point them at the proxy
+        for name in accuracy_proxy.PROXY_SPLITS:
+            register_pascal_voc(name, os.path.join(args.data, "data", name),
+                                "val" if name.endswith("val") else "train", CLASS_NAMES_8)
+        probe, trainers, launches = BoundaryProbe(), [], {}
+
+        def build_hooks(self):
+            return orig_hooks(self) + [probe]
+
+        def resume_or_load(self, resume=False):
+            orig_resume(self, resume)
+            trainers.append(self)
+            self.loaded = {part: {k: v.clone() for k, v in
+                                  getattr(self.state, part).state_dict().items()}
+                           for part in ("student", "teacher")}
+
+        def launch(argv, env, log_path, append):
+            os.environ["DETECTRON2_DATASETS"] = env["DETECTRON2_DATASETS"]
+            name = f"proxy_stage{len(launches) + 1}"
+            launches[name] = drive_cli(name, train_net, argv)[1]
+            return 0
+
+        trainer_mod.PTrainer.build_hooks = build_hooks
+        trainer_mod.PTrainer.resume_or_load = resume_or_load
+        torch.cuda.reset_peak_memory_stats()
+        result = accuracy_proxy.campaign(args, launch=launch)
+
+        s1 = accuracy_proxy.stage_args(args, 1)
+        s2 = accuracy_proxy.stage_args(args, 2, s1.out)
+        for ns, keys in ((s1, (accuracy_proxy.FOGGY_STUDENT, accuracy_proxy.CITY_STUDENT)),
+                         (s2, ("mAP50", "mAP50_student", "num_pseudo_boxes"))):
+            recs = accuracy_proxy.read_records(ns.out)
+            losses = [v for r in recs for k, v in r.items() if k.startswith(("loss", "total"))]
+            check(losses and all(np.isfinite(v) for v in losses),
+                  f"{os.path.basename(ns.out)}: losses not finite")
+            ev = accuracy_proxy.evals(ns.out)
+            check(bool(ev) and all(k in r and np.isfinite(r[k]) for _, r in ev for k in keys),
+                  f"{os.path.basename(ns.out)}: eval metrics {keys} missing or not finite")
+            log(f"[proxy] {os.path.basename(ns.out)}: evals "
+                f"{json.dumps([(e, {k: r[k] for k in keys}) for e, r in ev])}")
+        final1 = torch.load(os.path.join(s1.out, f"model_{args.iters:07d}"), map_location="cpu",
+                            weights_only=True)
+        stage2 = trainers[-1]
+        check(len(trainers) == 2 and stage2.cfg.MODEL.WEIGHTS == s2.weights
+              and stage2.burn_up == args.burn, "stage 2 did not start from stage 1's checkpoint")
+        for part in ("student", "teacher"):
+            check(_same_state(stage2.loaded[part], final1[part]),
+                  f"MODEL.WEIGHTS: stage 2's {part} differs from stage 1's final {part}")
+        check(probe.student is not None and probe.teacher is not None
+              and _same_state(probe.teacher, probe.student),
+              "the teacher after step BURN_UP_STEP is not the student before it")
+        log(f"[proxy] MODEL.WEIGHTS: stage 2 starts from stage 1's model_{args.iters:07d}, "
+            f"student and teacher bit for bit; the teacher after step {args.burn} equals the "
+            f"student before it bit for bit; {card_line()}")
+        stages = {k: v["stats"] for k, v in result["stages"].items()}
+    finally:
+        trainer_mod.PTrainer.build_hooks = orig_hooks
+        trainer_mod.PTrainer.resume_or_load = orig_resume
+        shutil.rmtree(work, ignore_errors=True)
+
+    gen = torch.Generator().manual_seed(11)
+    cases = {
+        "roi_align_fwd": {label: fwd_check_and_time(dev, gen, label, n, r, PROXY_FEAT)
+                          for label, n, r in PROXY_FWD},
+        "roi_align_bwd": {label: bwd_check_and_time(dev, label, n, r, PROXY_FEAT)
+                          for label, n, r in PROXY_BWD},
+        "nms_keep": {label: nms_check_and_time(dev, gen, label, *case, canvas=PROXY_CANVAS)
+                     for label, *case in PROXY_NMS},
+    }
+    return {"out": {"stages": stages, "bands": result["bands"]}, "launches": launches,
+            "calls": {name: 1 for name in launches}, "cases": cases}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -1451,9 +1625,10 @@ def main() -> int:
     cli, dp_cli = phase_cli(dev)
     dp = phase_dp(dev)
     lv = phase_levers(dev)
+    px = phase_proxy(dev)
 
     launches, calls = {}, {}
-    for ph in (sl, tr, cli, dp_cli, dp, lv):
+    for ph in (sl, tr, cli, dp_cli, dp, lv, px):
         launches.update(ph["launches"])
         calls.update(ph["calls"])
     for entry, k in ((k_roi, roi_align_cuda.KERNEL), (k_bwd, roi_align_cuda.BWD_KERNEL),
@@ -1462,9 +1637,10 @@ def main() -> int:
         entry["launches"] = sum(per.values())
         entry["launches_by_path"] = per
         entry["calls_by_path"] = calls
+        entry["cases"].update(px["cases"][entry["name"]])
     log(json.dumps({"slice": {k: v for k, v in sl.items() if k not in ("launches", "calls")},
                     "train": tr["out"], "cli": cli["out"], "dp_cli": dp_cli["out"],
-                    "dp": dp["out"], "levers": lv["out"], "build_s": build_s,
+                    "dp": dp["out"], "levers": lv["out"], "proxy": px["out"], "build_s": build_s,
                     "total_s": time.perf_counter() - t0}))
     log("[kernels] library_ms is null for all three: core PyTorch has no ROIAlign, ROIAlign "
         "backward or NMS call (torchvision is not installed), so no single library call "

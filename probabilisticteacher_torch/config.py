@@ -468,7 +468,7 @@ class Arch:
     # every value maps to the port's one ROIAlign (kernel on the card)
     roi_align_impl: str = "auto"
     # "greedy" and "pallas" map to the port's one exact NMS; the approximate
-    # "maxpool", "maxpool_train" and "hybrid" are not ported yet
+    # "maxpool", "maxpool_train" and "hybrid" run ops/maxpool_nms.py
     rpn_nms_impl: str = "greedy"
     remat_backbone: bool = False
     freeze_at: int = 2  # frozen VGG blocks (MODEL.BACKBONE.FREEZE_AT)

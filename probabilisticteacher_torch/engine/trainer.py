@@ -383,9 +383,13 @@ class PTrainer:
             class_names: List[str] = list(DatasetCatalog.class_names(name) or [
                 str(i) for i in range(self.arch.num_classes)])
             loader = EvalLoader(self.cfg, dicts)
+            t0 = time.perf_counter()
             res = evaluate_detections(model, loader, class_names, style=style,
                                       max_images=max_images,
                                       gt_dicts=None if max_images else dicts)
+            n = min(max_images, len(loader)) if max_images else len(loader)
+            logger.info(f"eval on {name}: {n} images in "
+                        f"{time.perf_counter() - t0:.3f} s")
             if len(self.cfg.DATASETS.TEST) > 1:
                 # like detectron2's multi-dataset results dict: prefix with the
                 # dataset name so a second test set can't overwrite the first

@@ -15,6 +15,8 @@ import time
 from collections import defaultdict, deque
 from typing import Dict
 
+import torch
+
 logger = logging.getLogger("probabilisticteacher_torch")
 
 
@@ -63,7 +65,10 @@ class ConsoleWriter:
         losses = "  ".join(f"{k}: {v:.4g}" for k, v in sorted(m.items()) if k.startswith(("loss", "total")))
         extras = "  ".join(f"{k}: {v:.4g}" for k, v in sorted(m.items())
                            if not k.startswith(("loss", "total")))
-        logger.info(f"iter: {it}/{self.max_iter}  {losses}  {extras}  it/s: {rate:.2f}")
+        # detectron2's max_mem: the card's peak allocation so far
+        mem = (f"  max_mem: {torch.cuda.max_memory_allocated() / 2**20:.0f}M"
+               if torch.cuda.is_available() and torch.cuda.is_initialized() else "")
+        logger.info(f"iter: {it}/{self.max_iter}  {losses}  {extras}  it/s: {rate:.2f}{mem}")
 
 
 class JSONWriter:

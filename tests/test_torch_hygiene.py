@@ -48,7 +48,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # every module of the slices was imported, the mesh and the levers' modules too
-    assert int(out.stdout.split()[-1]) >= 43
+    assert int(out.stdout.split()[-1]) >= 44
 
 
 def test_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
