@@ -104,7 +104,21 @@ Phases (each failure exits non-zero; none is caught and passed over):
    images/s and peak memory; then each kernel against its plain version and timed at
    the proxy's shapes (a 30 x 62 map): K1 at (48, 512) and (16, 2000) ROIs, K2 at
    (48, 512) and (32, 512), K3 at 48 and 16 x 12000 -> 2000 and 16 x 16000 -> 100;
-12. one JSON line of the kernels' launches (by path, the phases 9-11 paths
+12. the bench entry, ``probabilisticteacher_torch/bench.py``: its worker in this
+   process at the recipe's batch, ``--batch 16`` (16 + 16 images on the bench's
+   608 x 1216 canvas, VGG16, AMP bf16, ``bench.py``'s random uint8 batches), 3
+   windows of 3 iterations, with the launch counts set to 0 just before and read
+   just after (``bench_worker``: K1, K2 and K3 each launched); the record's keys,
+   ``value`` finite and equal to 4 x 16 / ``step_ms``, 0 < ``conv_mfu`` <= 1; then
+   ``python -m probabilisticteacher_torch.bench --iters 4 --windows 2`` as a child
+   process (its worker, warm start and loader-in-the-loop run, each a process of its
+   own) on a proxy tree of 16 + 16 480 x 960 images written to a temporary
+   ``--data-root``: its last line parses, with ``compile_warm_s`` and
+   ``e2e.data_time_share`` in [0, 1]; then each kernel against its plain version
+   and timed at the worker's shapes (a 38 x 76 map, phases 2, 3 and 5's tolerances):
+   K1 at (48, 512) and (16, 2000) ROIs, K2 at (48, 512), K3 at 48 and 16 x 12000 ->
+   2000 and 16 x 16000 -> 100;
+13. one JSON line of the kernels' launches (by path, the phases 9-12 paths
    included), error, time (CUDA events), bound and plain-version time. No kernel
    has one PyTorch call that computes the same function (core PyTorch has no
    ROIAlign, ROIAlign backward or NMS), so ``library_ms`` is null.
@@ -1599,6 +1613,110 @@ def phase_proxy(dev) -> dict:
             "calls": {name: 1 for name in launches}, "cases": cases}
 
 
+# --------------------------------------------------------------------- phase 12
+BENCH_WORKER_ARGS = ("--worker", "--batch", "16", "--iters", "3", "--windows", "3",
+                     "--window-budget-s", "20")
+BENCH_CHILD_ARGS = ("--iters", "4", "--windows", "2", "--attempt-timeout-s", "300")
+BENCH_PROXY = ("--n-train", "16", "--n-val", "1", "--hw", "480", "960")
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline", "windows", "window_min",
+              "window_max", "spread", "compile_s", "batch", "device", "images_rule", "step_ms",
+              "conv_tflop_per_iter", "conv_mfu")
+BENCH_CANVAS = (608, 1216)
+BENCH_FEAT = (38, 76, 512)          # the bench's canvas over stride 16
+# the kernels at the bench worker's shapes (--batch 16): K1 in the student and teacher
+# passes, K2 in the student backward, K3 in the student's and teacher's RPN and the
+# teacher's class-aware NMS
+BENCH_FWD = (("bench_student", 48, 512), ("bench_teacher", 16, 2000))
+BENCH_BWD = (("bench_student", 48, 512),)
+BENCH_NMS = (("bench_rpn_student", 48, 12000, 2000, 0.7, 0),
+             ("bench_rpn_teacher", 16, 12000, 2000, 0.7, 0),
+             ("bench_class_teacher", 16, 16000, 100, 0.5, 8))
+
+
+def phase_bench(dev) -> dict:
+    """The bench entry (see the module docstring, phase 12)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from probabilisticteacher_torch import bench
+
+    args = bench.build_parser().parse_args(list(BENCH_WORKER_ARGS))
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = bench.run_worker(args)
+    worker_s = time.perf_counter() - t0
+    counts = {k.symbol: k.launches for k in KERNELS}
+    log(f"[bench] worker record {buf.getvalue().strip()}")
+    log(f"[path] bench_worker: {worker_s!r} s; launches {counts}")
+    for k in KERNELS:
+        check(counts[k.symbol] > 0, f"{k.symbol} was not launched on the bench_worker path")
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    check(not missing, f"bench record lacks {missing}")
+    check(np.isfinite(rec["value"]) and rec["value"] > 0, f"bench value {rec['value']}")
+    check(abs(rec["value"] - 4 * 16 / rec["step_ms"] * 1e3) <= 0.01,
+          f"bench value {rec['value']} is not 4 x 16 / step_ms {rec['step_ms']}")
+    check(rec["conv_mfu"] is not None and 0 < rec["conv_mfu"] <= 1,
+          f"conv_mfu {rec['conv_mfu']}")
+    calls = bench.WARMUP_STEPS + args.iters * len(rec["windows"])
+
+    work = tempfile.mkdtemp(prefix="pt_chip_bench_")
+    try:
+        root = os.path.join(work, "proxy")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, bench.MAKE_PROXY, "--root", root, *BENCH_PROXY],
+                       check=True, capture_output=True, timeout=300)
+        proxy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "probabilisticteacher_torch.bench",
+                                 *BENCH_CHILD_ARGS, "--data-root", root],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.terminate()          # the entry kills its own children on SIGTERM
+            proc.communicate()
+            check(False, "python -m probabilisticteacher_torch.bench ran past 900 s")
+        child_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for line in stderr.splitlines():
+        if line.startswith(("[bench] built", "[bench] e2e:", "[bench] warm start")):
+            log(line)
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: {stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench printed {len(lines)} lines")
+    full = json.loads(lines[-1])
+    check(all(k in full for k in BENCH_KEYS + ("compile_warm_s", "e2e")),
+          f"bench's record lacks keys: {sorted(full)}")
+    share = full["e2e"]["data_time_share"]
+    check(0.0 <= share <= 1.0 and full["e2e"]["value"] > 0, f"bench e2e {full['e2e']}")
+    log(f"[bench] python -m probabilisticteacher_torch.bench {' '.join(BENCH_CHILD_ARGS)}: "
+        f"{child_s!r} s (proxy written in {proxy_s!r} s); record {lines[-1]}")
+    out = {"worker": {k: rec[k] for k in ("value", "windows", "spread", "step_ms", "compile_s",
+                                          "conv_tflop_per_iter", "conv_mfu", "device")},
+           "worker_s": worker_s,
+           "orchestrated": {k: full[k] for k in ("value", "step_ms", "compile_s",
+                                                 "compile_warm_s", "conv_mfu", "e2e")},
+           "orchestrated_s": child_s}
+    gen = torch.Generator().manual_seed(12)
+    cases = {
+        "roi_align_fwd": {label: fwd_check_and_time(dev, gen, label, n, r, BENCH_FEAT)
+                          for label, n, r in BENCH_FWD},
+        "roi_align_bwd": {label: bwd_check_and_time(dev, label, n, r, BENCH_FEAT)
+                          for label, n, r in BENCH_BWD},
+        "nms_keep": {label: nms_check_and_time(dev, gen, label, *case, canvas=BENCH_CANVAS)
+                     for label, *case in BENCH_NMS},
+    }
+    return {"out": out, "launches": {"bench_worker": counts}, "calls": {"bench_worker": calls},
+            "cases": cases}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card", file=sys.stderr)
@@ -1615,20 +1733,29 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    k_roi = phase_roi_align(dev)
-    k_bwd = phase_roi_align_bwd(dev)
-    k_nms = phase_nms(dev)
-    sl = phase_slice(dev)
-    phase_reference(dev)
-    tr = phase_train(dev)
-    phase_train_reference(dev)
-    cli, dp_cli = phase_cli(dev)
-    dp = phase_dp(dev)
-    lv = phase_levers(dev)
-    px = phase_proxy(dev)
+    phase_s = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn(dev)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    k_roi = timed("roi_align", phase_roi_align)
+    k_bwd = timed("roi_align_bwd", phase_roi_align_bwd)
+    k_nms = timed("nms", phase_nms)
+    sl = timed("slice", phase_slice)
+    timed("reference", phase_reference)
+    tr = timed("train", phase_train)
+    timed("train_reference", phase_train_reference)
+    cli, dp_cli = timed("cli", phase_cli)
+    dp = timed("dp", phase_dp)
+    lv = timed("levers", phase_levers)
+    px = timed("proxy", phase_proxy)
+    bn = timed("bench", phase_bench)
 
     launches, calls = {}, {}
-    for ph in (sl, tr, cli, dp_cli, dp, lv, px):
+    for ph in (sl, tr, cli, dp_cli, dp, lv, px, bn):
         launches.update(ph["launches"])
         calls.update(ph["calls"])
     for entry, k in ((k_roi, roi_align_cuda.KERNEL), (k_bwd, roi_align_cuda.BWD_KERNEL),
@@ -1638,9 +1765,11 @@ def main() -> int:
         entry["launches_by_path"] = per
         entry["calls_by_path"] = calls
         entry["cases"].update(px["cases"][entry["name"]])
+        entry["cases"].update(bn["cases"][entry["name"]])
     log(json.dumps({"slice": {k: v for k, v in sl.items() if k not in ("launches", "calls")},
                     "train": tr["out"], "cli": cli["out"], "dp_cli": dp_cli["out"],
-                    "dp": dp["out"], "levers": lv["out"], "proxy": px["out"], "build_s": build_s,
+                    "dp": dp["out"], "levers": lv["out"], "proxy": px["out"], "bench": bn["out"],
+                    "build_s": build_s, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t0}))
     log("[kernels] library_ms is null for all three: core PyTorch has no ROIAlign, ROIAlign "
         "backward or NMS call (torchvision is not installed), so no single library call "

@@ -39,6 +39,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from .structures import card_line
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE = os.path.join(REPO, "configs", "pt", "final_c2f.yaml")
 MAKE_PROXY = os.path.join(REPO, "scripts", "make_daod_proxy.py")
@@ -454,16 +456,6 @@ def bands(stage1: str, stage2: str) -> dict:
     }
     out["collapsed"] = bool(teacher) and peak < 60.0
     return out
-
-
-def card_line() -> str:
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
-        return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "no nvidia-smi"
-    except (OSError, IndexError, subprocess.TimeoutExpired):
-        return "no nvidia-smi"
 
 
 def _seed_suffix(args) -> str:

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -41,7 +40,7 @@ from .engine.steps import create_train_state, make_train_steps
 from .modeling.detector import PTDetector
 from .ops.roi_align_cuda import roi_align
 from .solver import build_optimizer
-from .structures import GroundTruth, ImageBatch
+from .structures import GroundTruth, ImageBatch, card_line
 
 
 def _staged(det: PTDetector, batch: ImageBatch, training: bool):
@@ -216,9 +215,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout
-    print(card.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     cfg = get_cfg()
     cfg.merge_from_list(["MODEL.ANCHOR_GENERATOR.NAME", "DifferentiableAnchorGenerator",
                          "SOLVER.AMP.ENABLED", "True"])

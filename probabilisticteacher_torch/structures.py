@@ -8,6 +8,7 @@ the two packages' outputs compare field by field.
 
 from __future__ import annotations
 
+import subprocess
 from typing import NamedTuple
 
 import torch
@@ -68,3 +69,15 @@ def resolve_device(device=None) -> torch.device:
             "probabilisticteacher_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit``
+    prints them, or "no nvidia-smi"."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "no nvidia-smi"
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        return "no nvidia-smi"

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and never moves to the CPU on its own.
 
-- every module of ``probabilisticteacher_torch`` and every import of
-  ``chip_smoke.py`` loads without JAX, flax or the JAX package (checked in a fresh
+- every module of ``probabilisticteacher_torch`` (the bench entry, its roofline and
+  lever sweep included) and every import of ``chip_smoke.py`` loads without JAX,
+  flax, the JAX package, the root ``bench.py`` or ``scripts/`` (checked in a fresh
   interpreter, since this test process has JAX loaded);
 - entry points (detector, Predictor, trainer, CLI, ``make_mesh``) default to the
   card and raise when there is none, unless the caller asks for the CPU;
@@ -36,7 +37,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its imports only: the run is under __main__
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "probabilisticteacher_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "probabilisticteacher_tpu", "bench",
+                                    "scripts", "roofline", "lever_sweep"))
 assert not bad, bad
 print(len(names))
 """
@@ -47,8 +49,9 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK.format(repo=REPO)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # every module of the slices was imported, the mesh and the levers' modules too
-    assert int(out.stdout.split()[-1]) >= 44
+    # every module of the slices was imported, the mesh and the levers' modules too, and
+    # the bench entry's three (bench, roofline, lever_sweep)
+    assert int(out.stdout.split()[-1]) >= 47
 
 
 def test_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
