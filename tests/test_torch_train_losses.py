@@ -148,3 +148,33 @@ def test_student_losses(setup, n_l, n_u):
         student_draws(key, n_l, n_u, ANCHORS, ROWS))
     _total(*got).backward()
     _compare(want, got, grads, tdet, anchor_grad=True)
+
+
+def test_unsupervised_losses_on_sparse_pseudo_labels(setup):
+    """The pseudo labels of a trained teacher: few valid boxes, an image with none, and a
+    box clipped to zero width at the image's right edge. That box has IoU 0 with every
+    anchor, so the RPN matcher's low-quality rule labels every anchor positive in its
+    image, on both sides. Only boxes of 8 px or more are kept valid otherwise: a
+    proposal a few pixels tall turns the ~1e-6 convolution differences into 3e-4 of
+    the box predictor's gradient through ``get_deltas`` (weights 10, 10, 5, 5)."""
+    jdet, params, tdet, jb, tb, _, _, pl, _ = setup
+    boxes, logits, sigma, valid = (np.array(x) for x in pl)
+    big = np.minimum(boxes[..., 2] - boxes[..., 0], boxes[..., 3] - boxes[..., 1]) >= 8.0
+    valid &= big & (np.cumsum(big, axis=1) <= 2)         # at most two per image
+    valid[1] = False                                     # image 1 keeps none
+    boxes[2, -1] = [48.0, 10.0, 48.0, 30.0]              # zero width at x = w
+    valid[2, -1] = True
+    assert valid[0].any() and valid[3].any()
+    jpl = JPseudoLabels(*(jnp.asarray(x) for x in (boxes, logits, sigma, valid)))
+    tpl = PseudoLabels(*(torch.from_numpy(x) for x in (boxes, logits, sigma, valid)))
+
+    def fn(p):
+        losses = jdet.unsupervised_losses(p, jb, jpl, jax.random.key(0))
+        return _total(losses), losses
+
+    (_, want), grads = jax.jit(jax.value_and_grad(fn, has_aux=True))(params)
+    tdet.zero_grad(set_to_none=True)
+    got = tdet.unsupervised_losses(tb, tpl)
+    _total(got).backward()
+    assert float(got["loss_rpn_cls"].detach()) > 0 and float(got["loss_box_reg"].detach()) > 0
+    _compare([want], [got], grads, tdet, anchor_grad=True)
