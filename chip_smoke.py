@@ -20,7 +20,10 @@ Phases (each failure exits non-zero; none is caught and passed over):
    and its class-aware 16 x 16000 -> 100, and the student's RPN per rank of a
    2-rank step, 24 x 12000 -> 2000; clustered boxes that fill the RPN's
    budget, bf16-quantised (tied) scores, duplicate boxes and chains: indices and
-   valid masks exactly equal;
+   valid masks exactly equal; with the IoU counter on (``ops/nms_cuda.py``
+   ``counting_keep``), the keep mask unchanged and the count equal to
+   ``iou_pairs``, the IoUs the scan needs, which also give the bound; the
+   kernel timed with the counter off and on, in turn on the same inputs;
 4. the inference slice at full width (VGG16, 8 classes, learnable anchors, AMP
    bf16, canvas 608 x 1344, batch 8, seeded random weights): ``detect``,
    ``pseudo_labels`` and ``Predictor`` a few times each, each path driven with the
@@ -338,9 +341,10 @@ def nms_case(gen: torch.Generator, n: int, k: int, canvas=CANVAS):
     return boxes, scores, valid
 
 
-def iou_pairs(boxes_s, keep, valid_s, thresh) -> int:
-    """IoU comparisons this data needs: each valid row against every kept row ahead of
-    it, up to and including the first kept row that suppresses it."""
+def iou_pairs(boxes_s, keep, valid_s, thresh, max_keep) -> int:
+    """IoU comparisons this data needs: each valid row up to the row where the scan
+    ends (the ``max_keep``-th kept row, or the last row) against every kept row ahead
+    of it, up to and including the first kept row that suppresses it."""
     total = 0
     for i in range(boxes_s.shape[0]):
         kept = torch.nonzero(keep[i]).squeeze(1)
@@ -351,7 +355,8 @@ def iou_pairs(boxes_s, keep, valid_s, thresh) -> int:
         first = torch.where(hit.any(0), hit.to(torch.int8).argmax(0), kept.numel())
         ahead = torch.searchsorted(kept, rows)            # kept rows before each row
         need = torch.minimum(ahead, first + 1)
-        total += int(need[valid_s[i]].sum())
+        counted = valid_s[i] & (ahead < max_keep)         # no row after the scan's end
+        total += int(need[counted].sum())
     return total
 
 
@@ -377,18 +382,35 @@ def nms_check_and_time(dev, gen, label, n, k, max_keep, thresh, classes,
     check(kept > 0, f"nms kept nothing ({label})")
     order, b_s, a_s, v_s = plain_nms.sort_by_score(boxes, scores, valid)
     keep = nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep)
-    ms = cuda_ms(lambda: nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep), reps=10)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    keep_counted = nms_cuda.counting_keep(b_s, a_s, v_s, thresh, max_keep, counter)
+    pairs = iou_pairs(b_s, keep, v_s, thresh, max_keep)
+    counted = int(counter.item())
+    log(f"[nms] {label}: the kernel's IoU counter {counted}, iou_pairs {pairs}; keep masks "
+        f"with the counter on and off equal: {torch.equal(keep, keep_counted)}")
+    check(torch.equal(keep, keep_counted), f"nms keep mask moved with the IoU counter ({label})")
+    check(counted == pairs, f"nms IoU counter {counted} != iou_pairs {pairs} ({label})")
+
+    # the plain and the counting instantiation on the same inputs, in turn
+    plain, counts = [], []
+    for _ in range(3):
+        plain.append(cuda_ms(lambda: nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep), reps=10))
+        counts.append(cuda_ms(lambda: nms_cuda.counting_keep(b_s, a_s, v_s, thresh, max_keep,
+                                                             counter), reps=10))
+    ms, counting_ms = sum(plain) / 3, sum(counts) / 3
+    log(f"[nms] {label}: kernel {ms!r} ms, counting the IoUs {counting_ms!r} ms "
+        f"({counting_ms / ms - 1:+.2%}; rounds {plain!r} / {counts!r})")
     # the plain scan takes ~1 s at 48 images: one timed call there
     plain_ms = cuda_ms(lambda: plain_nms.greedy_keep(b_s, a_s, v_s, thresh, max_keep),
                        reps=1 if n > 16 else 2, warm=0 if n > 16 else 1)
-    pairs = iou_pairs(b_s, keep, v_s, thresh)
     nbytes = n * k * (16 + 4 + 1 + 1)
     ops = pairs * IOU_OPS
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     log(f"[nms] {label}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
         f"({pairs} IoU pairs, {nbytes} B)")
     return {"images": n, "k": k, "max_keep": max_keep, "thresh": thresh,
-            "kept": kept, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "kept": kept, "ious": pairs, "ms": ms, "counting_ms": counting_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
             else "operations"}
 

@@ -51,6 +51,20 @@
 // division). Spreading an image over a thread-block cluster is the next step.
 // ptxas (sm_90a, -O3 -fmad=false): 32 registers, 3088 B of static shared memory
 // plus 8 B per 64 rows (1.5 KB at 12000 rows), no spills.
+//
+// Counting (a non-null `ious`, the instantiation nms_keep_kernel<true>): the kernel
+// adds into *ious the IoUs the greedy scan needs, not those it evaluates: each
+// valid row up to the row where the scan ends (the max_keep-th kept row, or the
+// last row) against every kept row ahead of it, up to and including the first that
+// suppresses it. Step 2 counts its tile's own pairs as it walks (each kept row
+// against the tile's rows still open after it); step 3 adds each lane's number of
+// tests to its row's entry of a per-row table in shared memory (4 B a row), since
+// whether a row lies past the scan's end is known only when the scan ends. At the
+// end the block sums the table up to that row, in one atomic add. The keep
+// decisions are the same code in both instantiations. Counting costs 2.6-2.8% of
+// the kernel's time on the RPN's scans and 4.5-4.8% on the class-aware ones (H100),
+// so the program counts the scans of a traced step again after the work it times
+// (ops/nms_cuda.py count_ious) and never in it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,15 +85,31 @@ __device__ __forceinline__ bool suppresses(const float4 a, const float aa, const
   return iou > t;
 }
 
+// The IoUs of a tile's walk (step 2) when the scan ends at its row `last`: each kept
+// row before `last` against the rows still open after it, up to `last` itself.
+__device__ unsigned long long capped_walk(unsigned long long rest,
+                                          const unsigned long long* later, const int last) {
+  rest &= (2ull << last) - 1;
+  unsigned long long n = 0;
+  while (rest != 0) {
+    const int r = __ffsll((long long)rest) - 1;
+    if (r == last) break;
+    n += __popcll(rest & ~((2ull << r) - 1));
+    rest &= ~later[r] & (rest - 1);
+  }
+  return n;
+}
+
 __device__ __forceinline__ float4 shfl4(const float4 v, const int src) {
   return make_float4(__shfl_sync(kAll, v.x, src), __shfl_sync(kAll, v.y, src),
                      __shfl_sync(kAll, v.z, src), __shfl_sync(kAll, v.w, src));
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area,
                 const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep, int k,
-                float t, int max_keep) {
+                float t, int max_keep, unsigned long long* __restrict__ ious) {
   extern __shared__ uint32_t supp[];  // bit i of word i/32: row i is suppressed
   __shared__ float4 tile_box[kTile];
   __shared__ float tile_area[kTile];
@@ -88,6 +118,8 @@ nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area
   __shared__ float kept_area[kTile];
   __shared__ int tile_kept;
   __shared__ int done;
+  __shared__ int end_row;                   // counting: the row where the scan ends
+  __shared__ unsigned long long block_ious;  // counting: the block's sum
   const size_t base = (size_t)blockIdx.x * k;
   boxes += base;
   area += base;
@@ -98,6 +130,7 @@ nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  uint32_t* tested = supp + nwords;  // counting: per row, its tests in step 3
 
   // invalid rows and the padding bits past k start suppressed
   for (int wi = warp; wi < nwords; wi += nwarps) {
@@ -105,10 +138,18 @@ nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area
     const uint32_t bits = __ballot_sync(kAll, i >= k || !valid[i]);
     if (lane == 0) supp[wi] = bits;
   }
-  for (int i = threadIdx.x; i < k; i += blockDim.x) keep[i] = 0;
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+    keep[i] = 0;
+    if (kCount) tested[i] = 0;
+  }
+  if (kCount && threadIdx.x == 0) {
+    end_row = k - 1;
+    block_ious = 0;
+  }
   __syncthreads();
 
   int total = 0;  // rows kept so far; only thread 0's copy is used
+  unsigned long long walked = 0;  // counting: IoUs of the tiles' walks (thread 0)
   for (int tile = 0; tile < ntiles; ++tile) {
     const int row0 = tile * kTile;
     // every thread reads the same words: the last writes were before a barrier
@@ -152,14 +193,22 @@ nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area
     if (threadIdx.x == 0) {
       unsigned long long rest = open;
       int nk = 0;
+      const unsigned long long tile_walk = walked;
       while (rest != 0) {
         const int r = __ffsll((long long)rest) - 1;
         kept_box[nk] = tile_box[r];
         kept_area[nk] = tile_area[r];
         ++nk;
         keep[row0 + r] = 1;
+        if (kCount) walked += __popcll(rest & ~((2ull << r) - 1));
         rest &= ~later[r] & (rest - 1);  // drop row r and the rows it suppresses
-        if (++total >= max_keep) break;
+        if (++total >= max_keep) {
+          if (kCount) {  // the scan ends at row r: replace the tile's part of the count
+            walked = tile_walk + capped_walk(open, later, r);
+            end_row = row0 + r;
+          }
+          break;
+        }
       }
       tile_kept = nk;
       done = total >= max_keep;
@@ -177,13 +226,40 @@ nms_keep_kernel(const float4* __restrict__ boxes, const float* __restrict__ area
         const int i = (wi << 5) + lane;
         const float4 b = boxes[i];
         const float a = area[i];
-        for (int q = 0; q < nk && !s; ++q) s = suppresses(kept_box[q], kept_area[q], b, a, t);
+        int q = 0;
+        for (; q < nk && !s; ++q) s = suppresses(kept_box[q], kept_area[q], b, a, t);
+        if (kCount) tested[i] += q;
       }
       const uint32_t ballot = __ballot_sync(kAll, s);
       if (lane == 0 && ballot != 0) supp[wi] = word | ballot;
     }
     __syncthreads();
   }
+
+  if (kCount) {  // the last barrier above ordered every write of `tested` and `end_row`
+    unsigned long long mine = threadIdx.x == 0 ? walked : 0;
+    for (int i = threadIdx.x; i <= end_row; i += blockDim.x) mine += tested[i];
+    for (int off = 16; off > 0; off >>= 1) mine += __shfl_down_sync(kAll, mine, off);
+    if (lane == 0 && mine != 0) atomicAdd(&block_ious, mine);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_ious != 0) atomicAdd(ious, block_ious);
+  }
+}
+
+template <bool kCount>
+int launch(const void* boxes, const void* area, const void* valid, void* keep, int n, int k,
+           float thresh, int max_keep, cudaStream_t stream, void* ious) {
+  const size_t words = (size_t)((k + kTile - 1) / kTile) * 2;
+  const size_t smem = words * sizeof(uint32_t) + (kCount ? (size_t)k * sizeof(uint32_t) : 0);
+  if (smem > 40 * 1024) {  // 48 KB less the static arrays
+    const cudaError_t e = cudaFuncSetAttribute(
+        nms_keep_kernel<kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  nms_keep_kernel<kCount><<<n, kThreads, smem, stream>>>(
+      (const float4*)boxes, (const float*)area, (const uint8_t*)valid, (uint8_t*)keep, k,
+      thresh, max_keep, (unsigned long long*)ious);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -194,19 +270,15 @@ const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 
 // boxes (N, K, 4) f32 sorted by descending score; area (N, K) f32 of those boxes;
 // valid (N, K) uint8; keep (N, K) uint8 out, 1 where the row is kept. One block per
-// image on `stream`. Returns cudaGetLastError() after the launch.
+// image on `stream`. `ious`: null, or an int64 on the device that gains the IoUs the
+// scan needs. Returns cudaGetLastError() after the launch.
 int pt_nms_keep(const void* boxes, const void* area, const void* valid, void* keep, int n,
-                int k, float thresh, int max_keep, void* stream) {
-  const size_t smem = (size_t)((k + kTile - 1) / kTile) * 2 * sizeof(uint32_t);
-  if (smem > 40 * 1024) {  // 48 KB less the static arrays
-    const cudaError_t e = cudaFuncSetAttribute(
-        nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  nms_keep_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float4*)boxes, (const float*)area, (const uint8_t*)valid, (uint8_t*)keep, k,
-      thresh, max_keep);
-  return (int)cudaGetLastError();
+                int k, float thresh, int max_keep, void* stream, void* ious) {
+  if (ious == nullptr)
+    return launch<false>(boxes, area, valid, keep, n, k, thresh, max_keep,
+                         (cudaStream_t)stream, nullptr);
+  return launch<true>(boxes, area, valid, keep, n, k, thresh, max_keep, (cudaStream_t)stream,
+                      ious);
 }
 
 }  // extern "C"

@@ -17,6 +17,9 @@ numpy pipeline that feeds static shapes:
 - background prefetch thread (decode overlaps the device step).
 
 Decode runs in the native C++ loader (data/native.py) when it builds, else in PIL.
+A :class:`SemiSupLoader` whose ``tracer`` is set (``tracing.py``) records a
+``loader.map`` span around each image's mapping, tagged with its stream, and a
+``loader.batch`` span around the making of each batch.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..tracing import span
 
 try:
     from PIL import Image
@@ -278,6 +283,7 @@ class SemiSupLoader:
             # the GIL, so this parallelizes like the reference's worker processes
             self._pool = ThreadPoolExecutor(self.num_workers)
         self._sample_counter = 0
+        self.tracer = None   # tracing.py's Tracer, or None: no spans
         self._q: Optional[queue.Queue] = None
         # PERSISTENT aspect buckets: surplus decoded records survive across
         # batches instead of being discarded (parity with the reference's
@@ -290,9 +296,10 @@ class SemiSupLoader:
     def _map_one(self, item):
         """Corrupt-sample resilience: skip undecodable images (returns None), like
         the reference's MapDataset retry-with-fallback (``pt/data/common.py:35-57``)."""
-        d, seed = item
+        d, seed, stream = item
         try:
-            return self.mapper(d, np.random.Generator(np.random.PCG64(seed)))
+            with span(self.tracer, "loader.map", stream):
+                return self.mapper(d, np.random.Generator(np.random.PCG64(seed)))
         except Exception as e:
             import logging
 
@@ -307,7 +314,7 @@ class SemiSupLoader:
         jobs = []
         for _ in range(n):
             self._sample_counter += 1
-            jobs.append((dicts[next(it)], self.seed * 1_000_003 + self._sample_counter))
+            jobs.append((dicts[next(it)], self.seed * 1_000_003 + self._sample_counter, stream))
         if self._pool is not None:
             return list(self._pool.map(self._map_one, jobs))
         return [self._map_one(j) for j in jobs]
@@ -370,7 +377,9 @@ class SemiSupLoader:
         def worker():
             while not stop.is_set():
                 try:
-                    if not put(self._produce_one()):
+                    with span(self.tracer, "loader.batch"):
+                        batch = self._produce_one()
+                    if not put(batch):
                         return
                 except BaseException as e:  # noqa: BLE001 — must not die silently
                     import sys

@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import torch
 
 from ..parallel.mesh import broadcast_values, host_max
+from ..tracing import Tracer, chrome_events
 
 logger = logging.getLogger("probabilisticteacher_torch")
 
@@ -392,19 +393,27 @@ class TeacherHealthHook(HookBase):
 
 class ProfilerHook(HookBase):
     """``torch.profiler`` window [START_STEP, START_STEP + NUM_STEPS) (cfg.PROFILER);
-    writes a Chrome trace, ``trace.json``, under ``output_dir``."""
+    writes a Chrome trace, ``trace.json``, under ``output_dir``.
+
+    The trainer's tracer (``tracing.py``) records over the same window,
+    unless one is already set, and its spans and counters join the trace as events
+    of their host threads: the stages of each step, the loader's and the
+    prefetcher's work, above the kernels they launched."""
 
     def __init__(self, start_step: int, num_steps: int, output_dir: str):
         self.start = start_step
         self.stop = start_step + num_steps
         self.outdir = output_dir
         self._prof: Optional[torch.profiler.profile] = None
+        self._tracer: Optional[Tracer] = None
 
     def before_step(self):
         if self.trainer.iter == self.start:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.trainer.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            if getattr(self.trainer, "tracer", None) is None:
+                self._tracer = self.trainer.tracer = Tracer()
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.start()
 
@@ -417,7 +426,20 @@ class ProfilerHook(HookBase):
             path = os.path.join(self.outdir, "trace.json")
             self._prof.export_chrome_trace(path)
             self._prof = None
+            if self._tracer is not None:
+                self.trainer.tracer = None
+                self._add_spans(path, self._tracer.drain())
+                self._tracer = None
             logger.info(f"Profiler trace written to {path}")
+
+    @staticmethod
+    def _add_spans(path: str, trace) -> None:
+        with open(path) as f:
+            doc = json.load(f)
+        base = int(doc.get("baseTimeNanoseconds", 0))
+        doc.setdefault("traceEvents", []).extend(chrome_events(trace, base, os.getpid()))
+        with open(path, "w") as f:
+            json.dump(doc, f)
 
 
 class LossEvalHook(HookBase):

@@ -34,9 +34,12 @@ there is no XLA compile to cache.
 from __future__ import annotations
 
 import logging
+import contextlib
+import functools
 import math
 import os
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,13 +53,20 @@ from ..data.loader import EvalLoader, SemiSupLoader
 from ..evaluation import evaluate_detections
 from ..events import ConsoleWriter, EventStorage, JSONWriter, TensorboardWriter
 from ..modeling.detector import PTDetector
+from ..ops import nms as nms_ops
+from ..ops import nms_cuda, roi_align_cuda
 from ..parallel.mesh import Mesh, all_reduce_sum, make_mesh, replicate
 from ..parallel.prefetch import DevicePrefetcher, host_to_device
 from ..solver import auto_scale_config, build_optimizer
 from ..structures import GroundTruth, ImageBatch, resolve_device
+from ..tracing import Tracer
 from .steps import create_train_state, make_train_steps
 
 logger = logging.getLogger("probabilisticteacher_torch")
+
+# the CUDA kernels whose launches a traced step counts, by counter prefix
+TRACED_KERNELS = (("k1", roi_align_cuda.KERNEL), ("k2", roi_align_cuda.BWD_KERNEL),
+                  ("k3", nms_cuda.KERNEL))
 
 
 def trainer_device(name: str) -> torch.device:
@@ -157,6 +167,9 @@ class PTrainer:
         self.iter = 0
         self.pending_metrics: Optional[StepMetrics] = None   # the previous step's
         self.last_data_time = 0.0
+        # spans and counters (tracing.py); None records nothing
+        self._tracer: Optional[Tracer] = None
+        self._traced_parts = weakref.WeakSet()   # the loaders and prefetchers built here
         self._hooks = []
         self.register_hooks(self.build_hooks())
 
@@ -193,6 +206,25 @@ class PTrainer:
             h.trainer = self
             self._hooks.append(h)
 
+    # --------------------------------------------------------------- tracing
+    @property
+    def tracer(self) -> Optional[Tracer]:
+        """The recorder of ``run_step``'s spans and counters, and of the loader's
+        and the prefetcher's that this trainer built; None (the default) records
+        nothing."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer: Optional[Tracer]) -> None:
+        self._tracer = tracer
+        for part in self._traced_parts:
+            part.tracer = tracer
+
+    def _traced(self, part):
+        part.tracer = self._tracer
+        self._traced_parts.add(part)
+        return part
+
     # ------------------------------------------------------------------ data
     def build_train_loader(self) -> SemiSupLoader:
         label_dicts, unlabel_dicts = [], []
@@ -201,9 +233,10 @@ class PTrainer:
         for name in self.cfg.DATASETS.TRAIN_UNLABEL:
             unlabel_dicts.extend(DatasetCatalog.get(name))
         # each rank loads its 1/W of the global batch with its own sample stream
-        return SemiSupLoader(self.cfg, label_dicts, unlabel_dicts,
-                             seed=max(int(self.cfg.SEED), 0) + 9973 * self.mesh.rank,
-                             world_size=self.mesh.world_size)
+        return self._traced(SemiSupLoader(
+            self.cfg, label_dicts, unlabel_dicts,
+            seed=max(int(self.cfg.SEED), 0) + 9973 * self.mesh.rank,
+            world_size=self.mesh.world_size))
 
     # --------------------------------------------------------------- restore
     def resume_or_load(self, resume: bool = False):
@@ -264,8 +297,9 @@ class PTrainer:
         depth = int(self.cfg.DATALOADER.DEVICE_PREFETCH)
         if depth <= 0:
             return loader_iter
-        return DevicePrefetcher(loader_iter, self._shard_for_iter,
-                                start_iter=self.start_iter, depth=depth, device=self.device)
+        return self._traced(DevicePrefetcher(loader_iter, self._shard_for_iter,
+                                             start_iter=self.start_iter, depth=depth,
+                                             device=self.device))
 
     def step_generator(self, it: int) -> torch.Generator:
         """The device generator, reseeded for iteration ``it``."""
@@ -277,25 +311,48 @@ class PTrainer:
         Accepts either a DevicePrefetcher (device batches, the ``train()`` path)
         or a raw host-batch iterator (tests/tools); host batches are copied here.
         The metrics start their way to the host (``pending_metrics``);
-        PeriodicWriter reads them one step later.
+        PeriodicWriter reads them one step later. With a :attr:`tracer`, the
+        step, its wait for data and its stages are spans (``tracing.py``), and
+        the step's kernel launches are counters; so are the IoUs that the NMS
+        scans of the tracer's first step needed, counted when the tracer is
+        drained: counting in the step would slow the kernel it times.
         """
+        tracer = self._tracer
+        if tracer is None:
+            self._run_step(batch_iter, None)
+            return
+        launches = [k.launches for _, k in TRACED_KERNELS]
+        scans = [] if tracer.steps == 0 else None
+        with tracer.step(self.iter), (contextlib.nullcontext() if scans is None
+                                      else nms_ops.recording_scans(scans)):
+            self._run_step(batch_iter, tracer)
+        for (name, k), before in zip(TRACED_KERNELS, launches):
+            tracer.count(f"{name}.launches", k.launches - before)
+        if scans is not None:
+            tracer.count("k3.ious", functools.partial(nms_cuda.count_ious, scans))
+
+    def _run_step(self, batch_iter, tracer: Optional[Tracer]):
         t0 = time.perf_counter()
         batch = next(batch_iter)
         self.last_data_time = time.perf_counter() - t0
+        marks = ()   # untraced, the steps keep their default mark, _no_mark
+        if tracer is not None:
+            tracer.data_done(self.last_data_time)
+            marks = (tracer.mark,)
 
         if "limg" not in batch:  # host batch: synchronous path
             batch = self._shard_for_iter(batch, self.iter)
         limg, lgt = batch["limg"], batch["lgt"]
         gen = self.step_generator(self.iter)
         if self.iter < self.burn_up:
-            self.state, metrics = self.burnin_step(self.state, limg, lgt, gen)
+            self.state, metrics = self.burnin_step(self.state, limg, lgt, gen, *marks)
         else:
             uimg = batch.get("uimg")
             if uimg is None:
                 # phase mismatch (e.g. burn_up changed between prefetch and
                 # consumption): heal with an on-demand copy
                 uimg = self._unlabel_images(batch["host_unlabel"])
-            self.state, metrics = self.mutual_step(self.state, limg, lgt, uimg, gen)
+            self.state, metrics = self.mutual_step(self.state, limg, lgt, uimg, gen, *marks)
         self.pending_metrics = StepMetrics(metrics)
 
     def train(self):

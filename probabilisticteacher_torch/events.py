@@ -11,7 +11,6 @@ from __future__ import annotations
 import json
 import logging
 import os
-import time
 from collections import defaultdict, deque
 from typing import Dict
 
@@ -51,16 +50,14 @@ class EventStorage:
 
 
 class ConsoleWriter:
+    """One console line per write: the losses, then every other metric (the
+    rate among them: ``it/s`` from ``IterationTimer``), then the peak memory."""
+
     def __init__(self, max_iter: int):
         self.max_iter = max_iter
-        self._last_time = time.perf_counter()
-        self._last_iter = 0
 
     def write(self, storage: EventStorage):
-        now = time.perf_counter()
         it = storage.iter
-        rate = (it - self._last_iter) / max(now - self._last_time, 1e-9)
-        self._last_time, self._last_iter = now, it
         m = storage.medians()
         losses = "  ".join(f"{k}: {v:.4g}" for k, v in sorted(m.items()) if k.startswith(("loss", "total")))
         extras = "  ".join(f"{k}: {v:.4g}" for k, v in sorted(m.items())
@@ -68,7 +65,7 @@ class ConsoleWriter:
         # detectron2's max_mem: the card's peak allocation so far
         mem = (f"  max_mem: {torch.cuda.max_memory_allocated() / 2**20:.0f}M"
                if torch.cuda.is_available() and torch.cuda.is_initialized() else "")
-        logger.info(f"iter: {it}/{self.max_iter}  {losses}  {extras}  it/s: {rate:.2f}{mem}")
+        logger.info(f"iter: {it}/{self.max_iter}  {losses}  {extras}{mem}")
 
 
 class JSONWriter:

@@ -14,17 +14,58 @@ kernel, which the CPU runs and the card runs only to check the kernel.
   score order, plus a valid mask; invalid slots point at index 0.
 
 Every function takes one image, ``(K, 4)``, or a batch, ``(N, K, 4)``.
+
+The IoUs a greedy scan needs (:func:`greedy_keep`'s ``count``, and the kernel's
+counting instantiation) are each valid row up to the row where the scan ends (the
+``max_keep``-th kept row, or the last row) against every kept row ahead of it, up
+to and including the first that suppresses it. Rows after the scan's end need
+none. The IoUs a kernel evaluates beyond these are not counted. Counting slows the
+kernel, so inside :func:`recording_scans` the keep decisions of this thread
+(``ops/nms_cuda.py``'s ``nms_keep``) only keep their sorted rows, to be counted
+later, away from the work being timed (``nms_cuda.count_ious``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .boxes import area
 
 KeepFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float, int], torch.Tensor]
+
+
+
+class Scan(NamedTuple):
+    """The arguments of one keep decision: sorted rows, threshold, budget."""
+    boxes_s: torch.Tensor
+    area_s: torch.Tensor
+    valid_s: torch.Tensor
+    iou_thresh: float
+    max_keep: int
+
+
+_SCANS: contextvars.ContextVar[Optional[List[Scan]]] = contextvars.ContextVar(
+    "scans", default=None)
+
+
+@contextlib.contextmanager
+def recording_scans(scans: List[Scan]) -> Iterator[None]:
+    """Append each keep decision that this thread makes until the block ends to
+    ``scans``; the rows stay on their device, unchanged, until ``scans`` is dropped."""
+    token = _SCANS.set(scans)
+    try:
+        yield
+    finally:
+        _SCANS.reset(token)
+
+
+def recorded_scans() -> Optional[List[Scan]]:
+    """The list of the enclosing :func:`recording_scans`, or None."""
+    return _SCANS.get()
 
 
 def sort_by_score(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor):
@@ -37,12 +78,15 @@ def sort_by_score(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
 
 
 def greedy_keep(boxes_s: torch.Tensor, area_s: torch.Tensor, valid_s: torch.Tensor,
-                iou_thresh: float, max_keep: int) -> torch.Tensor:
+                iou_thresh: float, max_keep: int,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The greedy scan over sorted rows -> keep mask (N, K) bool.
 
     One step per kept row, all images at once: each image takes its first row
     that is neither suppressed nor already taken, and suppresses the rows whose
     IoU with it exceeds the threshold (``pairwise_iou`` operation for operation).
+    ``count``, when given, gains the IoUs the scan needs (module docstring): each
+    row still open when a row is kept is tested against it.
     """
     n, k = valid_s.shape
     dev = valid_s.device
@@ -53,12 +97,16 @@ def greedy_keep(boxes_s: torch.Tensor, area_s: torch.Tensor, valid_s: torch.Tens
     x0, y0, x1, y1 = boxes_s.unbind(-1)
     done = ~valid_s            # suppressed or already taken
     keep = torch.zeros_like(valid_s)
+    cols = torch.arange(k, device=dev)
+    tested = torch.zeros((n, k), dtype=torch.int64, device=dev) if count is not None else None
     for _ in range(min(max_keep, k)):
         open_rows = ~done
         j = open_rows.to(torch.int8).argmax(dim=1)   # first open row (0 when none)
         found = open_rows[rows, j]
         if not bool(found.any()):
             break
+        if tested is not None:   # the open rows after j test their IoU with j
+            tested += open_rows & (cols > j[:, None]) & found[:, None]
         bj = boxes_s[rows, j]
         iw = torch.minimum(bj[:, 2:3], x1) - torch.maximum(bj[:, 0:1], x0)
         ih = torch.minimum(bj[:, 3:4], y1) - torch.maximum(bj[:, 1:2], y0)
@@ -68,6 +116,10 @@ def greedy_keep(boxes_s: torch.Tensor, area_s: torch.Tensor, valid_s: torch.Tens
         done |= (iou > t) & found[:, None]
         done[rows, j] = True
         keep[rows, j] |= found
+    if tested is not None:   # rows with max_keep kept rows ahead lie past the scan's end
+        kept = keep.to(torch.int64)
+        past_end = torch.cumsum(kept, dim=1) - kept >= max_keep
+        count += torch.where(past_end, torch.zeros_like(tested), tested).sum()
     return keep
 
 

@@ -13,6 +13,11 @@ event.
 The phase decision (does this batch need the unlabeled images on the device?) is
 exact: the worker counts iterations from ``start_iter`` in consumption order, so
 the burn-in/mutual boundary holds per batch even with copies running ahead.
+
+With its ``tracer`` set (``tracing.py``), the worker records a
+``prefetch.wait`` span around its wait for the next host batch and a
+``prefetch.copy`` span around ``shard_fn`` on the side stream, and ``__next__``
+counts the batches it found ready (``prefetch.depth``; 0: the step waited).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..tracing import span
 
 __all__ = ["DevicePrefetcher", "host_to_device"]
 
@@ -79,6 +86,7 @@ class DevicePrefetcher:
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._start_iter = start_iter
+        self.tracer = None   # tracing.py's Tracer, or None: no spans
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="device-prefetch")
         self._thread.start()
@@ -107,8 +115,12 @@ class DevicePrefetcher:
         it = self._start_iter
         try:
             while not self._stop.is_set():
-                batch = next(self._host)
-                if not self._put(self._copy(batch, it)):
+                tracer = self.tracer
+                with span(tracer, "prefetch.wait"):
+                    batch = next(self._host)
+                with span(tracer, "prefetch.copy"):
+                    item = self._copy(batch, it)
+                if not self._put(item):
                     return
                 it += 1
         except BaseException as e:  # noqa: BLE001 — surface to the consumer
@@ -123,6 +135,8 @@ class DevicePrefetcher:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
+        if self.tracer is not None:
+            self.tracer.count("prefetch.depth", self._q.qsize())
         item = self._q.get()
         if isinstance(item, BaseException):
             raise RuntimeError("Device prefetch worker failed") from item

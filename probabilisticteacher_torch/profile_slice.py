@@ -7,8 +7,9 @@ Runs at full width (VGG16, 8 classes, learnable anchors, AMP bf16, canvas
 unlabeled images for training) and prints the card's name and power limit, then
 one JSON line per path:
 
-- ``stages_ms``: device time of each stage (CUDA events, mean over the timed
-  calls after a warm-up). Inference: backbone, RPN head, proposals (top-k,
+- ``stages_ms``: device time of each stage (the CUDA events of
+  ``tracing.py``'s tracer at each stage's end, mean over the timed calls
+  after a warm-up). Inference: backbone, RPN head, proposals (top-k,
   decode, RPN NMS), ROIAlign, box head + predictor, and the ROI tail (decode,
   class-aware NMS). Train steps: EMA, the teacher's ``pseudo_labels`` (mutual
   only), augmentation, student forward, backward, optimizer;
@@ -37,6 +38,7 @@ import torch
 
 from .config import Arch, get_cfg
 from .engine.steps import create_train_state, make_train_steps
+from .tracing import Tracer
 from .modeling.detector import PTDetector
 from .ops.roi_align_cuda import roi_align
 from .solver import build_optimizer
@@ -44,17 +46,11 @@ from .structures import GroundTruth, ImageBatch, card_line
 
 
 def _staged(det: PTDetector, batch: ImageBatch, training: bool):
-    """One call of the path with an event pair around each stage."""
+    """One call of the path, the tracer's CUDA event at each stage's end."""
     a = det.arch
-    marks = [("start", torch.cuda.Event(enable_timing=True))]
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    with torch.no_grad():
-        marks[0][1].record()
+    tracer = Tracer(cuda_events=True)
+    mark = tracer.mark
+    with torch.no_grad(), tracer.step(0):
         feat = det.features(batch)
         mark("backbone")
         obj, deltas = det.rpn_predict(feat)
@@ -70,10 +66,7 @@ def _staged(det: PTDetector, batch: ImageBatch, training: bool):
         mark("box_head_predictor")
         det._roi_inference(feat, props, batch.image_hw)   # repeats ROIAlign + heads
         mark("roi_inference_total")
-    torch.cuda.synchronize()
-    out = {}
-    for (_, prev), (name, ev) in zip(marks, marks[1:]):
-        out[name] = prev.elapsed_time(ev)
+    out = tracer.stage_ms()
     out["roi_tail_decode_class_nms"] = (out.pop("roi_inference_total")
                                         - out["roi_align"] - out["box_head_predictor"])
     return out
@@ -179,17 +172,10 @@ def _train(path, cfg, card):
             state, _ = step(state, *args, gen, mark)
 
     def staged():
-        marks = [("start", torch.cuda.Event(enable_timing=True))]
-        marks[0][1].record()
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
-
-        one(mark)
-        torch.cuda.synchronize()
-        return {name: prev.elapsed_time(ev) for (_, prev), (name, ev) in zip(marks, marks[1:])}
+        tracer = Tracer(cuda_events=True)
+        with tracer.step(0):
+            one(tracer.mark)
+        return tracer.stage_ms()
 
     torch.cuda.reset_peak_memory_stats()
     one()

@@ -84,8 +84,13 @@ def test_coco_reader_matches(tmp_path):
     assert got[0]["image_id"] == 1 and got[0]["annotations"] == []
 
 
-def test_builtin_catalog_matches(tmp_path):
+def test_builtin_catalog_matches(tmp_path, monkeypatch):
     root = str(tmp_path)
+    # empty catalogs: a trainer built earlier in this process registered the builtin
+    # splits under its own root
+    for catalog in (jds.DatasetCatalog, tds.DatasetCatalog):
+        monkeypatch.setattr(catalog, "_fns", {})
+        monkeypatch.setattr(catalog, "metadata", {})
     jds.register_builtin(root)
     tds.register_builtin(root)
     names = sorted(jds.DatasetCatalog._fns)

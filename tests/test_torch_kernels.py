@@ -14,7 +14,8 @@ poolings other than (7, 2); ROIAlign backward bf16 2e-2 * max|dF| and f32
 1e-5 * max|dF| (the kernel does not round its intermediate to bf16), on the
 tile-crossing cases of ``roi_bwd_cases.py`` too, and two launches bit-identical
 (each block adds into its own tile in a fixed order); NMS keep sets exactly
-equal, the tile-boundary cases of ``nms_tile_cases.py`` included.
+equal, the tile-boundary cases of ``nms_tile_cases.py`` included, and with the IoU
+counter on the same keep sets and the plain scan's count.
 """
 
 import numpy as np
@@ -236,6 +237,30 @@ def test_nms_kernel_keep_sets_equal_plain(cuda, case):
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
     assert bool(got[1].any()) == (case != "all_invalid")
+
+
+@pytest.mark.parametrize("case", NMS_KERNEL_CASES, ids=str)
+def test_nms_kernel_iou_count_equals_plain(cuda, case):
+    """With the IoU counter on, the kernel's keep mask is the one it gives without
+    it, bit for bit, and its count is the plain scan's: the IoUs the scan needs."""
+    if isinstance(case, str):
+        boxes, scores, valid, max_keep, thresh = nms_tile_cases.make(
+            case, n=48 if case == "large" else 3)
+        boxes, scores, valid = (torch.from_numpy(x) for x in (boxes, scores, valid))
+    else:
+        k, max_keep, thresh, classes = case
+        boxes, scores, valid, cls = _clustered_nms_case(k, classes)
+        if cls is not None:
+            boxes = tnms.class_offset_boxes(boxes, cls, valid)
+    _, b_s, a_s, v_s = tnms.sort_by_score(boxes.to(cuda), scores.to(cuda), valid.to(cuda))
+    off = nms_cuda.nms_keep(b_s, a_s, v_s, thresh, max_keep)
+    got, want = (torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2))
+    on = nms_cuda.counting_keep(b_s, a_s, v_s, thresh, max_keep, got)
+    plain = tnms.greedy_keep(b_s, a_s, v_s, thresh, max_keep, want)
+    torch.cuda.synchronize()
+    assert torch.equal(on, off) and torch.equal(on, plain)
+    assert int(got) == int(want)
+    assert (int(got) > 0) == (case not in ("all_invalid", "k1"))
 
 
 def test_nms_kernel_matches_the_cpu_plain_version(cuda):
