@@ -5,8 +5,8 @@
 
 Phases (each failure exits non-zero; none is caught and passed over):
 
-1. build the three CUDA kernels with nvcc (one process per source, started
-   together) and print the card's name and power limit;
+1. build the CUDA kernels with nvcc (one process per source, started together)
+   and print the card's name and power limit;
 2. ROIAlign kernel vs its plain PyTorch version at the teacher-pass shape,
    (8, 2000) ROIs on an (8, 38, 84, 512) map, in bf16 (tolerance 2e-2 * max|F|:
    the plain version rounds its interpolation matrices and intermediate to bf16,
@@ -37,6 +37,14 @@ Phases (each failure exits non-zero; none is caught and passed over):
    (1e-5 * max|dF|), with the edge and degenerate boxes of phase 2 and zero
    gradient rows; two runs of the kernel must give the same dF bit for bit; each
    shape's time, bound and ``design_bytes`` (g read again by a second tile);
+5b. the augmentation kernels (``csrc/device_aug.cu``: the gray-sum prepass, the
+   color/blur/solarize pass and the scale jitter) against the plain version of
+   ``data/device_aug.py`` at the recipe's shapes, 16 uint8 images on the 608 x 1344
+   canvas (zero beyond each image's size) with ``draw_aug``'s and ``draw_jitter``'s
+   draws, in f32 (1e-4 * 255) and bf16 (1.0), a pixel that the two put on either side
+   of solarize's threshold measured before solarize; then, in bf16 as the recipe runs
+   them, each kernel's time (``torch.profiler``), the calls' time (CUDA events), the
+   plain version's and the byte bound (inputs read once, outputs written once);
 6. the train steps at full width (the recipe ``configs/pt/final_c2f.yaml``: VGG16,
    8 classes, learnable anchors, AMP bf16, canvas 608 x 1344, 16 labeled + 16
    unlabeled images; seeded random weights, random pixels, 20 random boxes per
@@ -140,7 +148,8 @@ Phases (each failure exits non-zero; none is caught and passed over):
 14. one JSON line of the kernels' launches (by path, the phases 9-13 paths
    included), error, time (CUDA events), bound and plain-version time. No kernel
    has one PyTorch call that computes the same function (core PyTorch has no
-   ROIAlign, ROIAlign backward or NMS), so ``library_ms`` is null.
+   ROIAlign, ROIAlign backward, NMS or the strong augmentation), so ``library_ms``
+   is null.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -159,9 +168,10 @@ import numpy as np
 import torch
 
 from probabilisticteacher_torch.config import Arch, get_cfg
+from probabilisticteacher_torch.data import device_aug
 from probabilisticteacher_torch.engine.steps import create_train_state, make_train_steps
 from probabilisticteacher_torch.modeling.detector import LossDraws, PTDetector
-from probabilisticteacher_torch.ops import _build, nms_cuda, roi_align_cuda
+from probabilisticteacher_torch.ops import _build, device_aug_cuda, nms_cuda, roi_align_cuda
 from probabilisticteacher_torch.ops import nms as plain_nms
 from probabilisticteacher_torch.ops.boxes import pairwise_iou
 from probabilisticteacher_torch.ops.roi_align import (batched_pool_matrices, roi_align_batched,
@@ -174,7 +184,8 @@ from probabilisticteacher_torch.structures import GroundTruth, ImageBatch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 IOU_OPS = 13                   # f32 operations of one IoU and its comparison
-KERNELS = (roi_align_cuda.KERNEL, roi_align_cuda.BWD_KERNEL, nms_cuda.KERNEL)
+KERNELS = (roi_align_cuda.KERNEL, roi_align_cuda.BWD_KERNEL, nms_cuda.KERNEL,
+           *device_aug_cuda.KERNELS)
 INFERENCE_KERNELS = (roi_align_cuda.KERNEL, nms_cuda.KERNEL)
 N, CANVAS, FEAT = 8, (608, 1344), (38, 84, 512)
 TRAIN_N = 16                   # IMG_PER_BATCH_LABEL = IMG_PER_BATCH_UNLABEL of the recipe
@@ -649,6 +660,106 @@ def phase_roi_align_bwd(dev) -> dict:
             "shape": "dOut (48, 512, 7, 7, 512) bf16 -> dF (48, 38, 84, 512), 40 zero rows "
                      "(ms, plain_ms, bound_ms); both train shapes in cases",
             "cases": cases}
+
+
+# -------------------------------------------------------------------- phase 5b
+AUG_TOL = {torch.float32: 1e-4 * 255, torch.bfloat16: 1.0}
+
+
+def aug_inputs(dev):
+    """16 uint8 images on the recipe's canvas, zero beyond each image's size, with
+    ``draw_aug``'s and ``draw_jitter``'s draws and 20 boxes an image."""
+    gen = torch.Generator().manual_seed(18)
+    hw = torch.tensor([IMAGE_HW[i % len(IMAGE_HW)] for i in range(TRAIN_N)], dtype=torch.float32)
+    img = torch.randint(0, 256, (TRAIN_N, *CANVAS, 3), generator=gen, dtype=torch.uint8)
+    inside = ((torch.arange(CANVAS[0])[None, :, None] < hw[:, 0, None, None])
+              & (torch.arange(CANVAS[1])[None, None, :] < hw[:, 1, None, None]))
+    img = img * inside[..., None]
+    boxes = torch.rand(TRAIN_N, GT_PER_IMAGE, 4, generator=gen) * 500
+    draws = torch.Generator(device=dev).manual_seed(18)
+    aug = device_aug.draw_aug(TRAIN_N, draws, dev)
+    ratio = device_aug.draw_jitter(TRAIN_N, draws, dev)
+    return img.to(dev), hw.to(dev), boxes.to(dev), aug, ratio
+
+
+def phase_aug(dev) -> dict:
+    from probabilisticteacher_torch.profile_slice import KERNEL_ROWS, kernel_ms, profile_call
+
+    img, hw, boxes, aug, ratio = aug_inputs(dev)
+    mean = Arch().pixel_mean
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        strong = device_aug.strong_augment(img, aug, dtype)
+        plain = device_aug.strong_augment_plain(img, aug, dtype)
+        out, out_b = device_aug.scale_jitter(strong, hw, boxes, mean, ratio, dtype)
+        want, want_b = device_aug.scale_jitter_plain(strong, hw, boxes, mean, ratio, dtype)
+        torch.cuda.synchronize()
+        name = str(dtype)[6:]
+        tol = AUG_TOL[dtype]
+        # solarize is not continuous: a value the two sides put within the tolerance of
+        # 128 but on either side of it comes out about 1 apart; such a pixel counts by its
+        # gap before solarize, |kernel + plain - 255|
+        g, p = strong.float(), plain.float()
+        gap = (g - p).abs()
+        across = ((aug.gates[:, 3] < device_aug.GATES[3]).view(-1, 1, 1, 1)
+                  & (torch.minimum(g, p) >= 127 - tol) & (torch.maximum(g, p) <= 128 + tol)
+                  & ((g + p - 255).abs() < gap))
+        gap = torch.where(across, (g + p - 255).abs(), gap)
+        err[name] = {"strong_augment": gap.max().item(),
+                     "scale_jitter": (out.float() - want.float()).abs().max().item()}
+        log(f"[aug] {name}: max|kernel - plain| {err[name]} (limit {tol!r}); values that "
+            f"differ: strong {int((strong != plain).sum())}, jitter {int((out != want).sum())} "
+            f"of {strong.numel()}; across solarize's threshold {int(across.sum())}")
+        del g, p, gap, across
+        check(max(err[name].values()) <= tol,
+              f"the augmentation kernels differ from the plain version in {name}")
+        check(torch.equal(out_b, want_b), f"scale_jitter moved the boxes otherwise ({name})")
+        del strong, plain, out, want
+    gates = [int((aug.gates[:, j] < p).sum()) for j, p in enumerate(device_aug.GATES)]
+    log(f"[aug] gates open of {TRAIN_N} (jitter, grayscale, blur, solarize): {gates}")
+
+    bf16 = torch.bfloat16
+    strong = device_aug.strong_augment(img, aug, bf16)
+    strong_ms = cuda_ms(lambda: device_aug.strong_augment(img, aug, bf16), reps=20)
+    jitter_ms = cuda_ms(lambda: device_aug.scale_jitter(strong, hw, boxes, mean, ratio, bf16),
+                        reps=20)
+    plain_strong_ms = cuda_ms(lambda: device_aug.strong_augment_plain(img, aug, bf16), reps=3,
+                              warm=1)
+    plain_jitter_ms = cuda_ms(
+        lambda: device_aug.scale_jitter_plain(strong, hw, boxes, mean, ratio, bf16), reps=3,
+        warm=1)
+
+    def both():
+        for _ in range(10):
+            s = device_aug.strong_augment(img, aug, bf16)
+            device_aug.scale_jitter(s, hw, boxes, mean, ratio, bf16)
+
+    _, rows = profile_call(both)
+    px = TRAIN_N * CANVAS[0] * CANVAS[1] * 3
+    kernels = {}
+    # bytes: the prepass reads the uint8 images; the color pass reads them and writes
+    # bf16; the jitter reads and writes bf16
+    for key, nbytes in (("aug_gray_sums_ms", px), ("aug_color_ms", px + 2 * px),
+                        ("aug_scale_jitter_ms", 4 * px)):
+        ms = kernel_ms(rows, KERNEL_ROWS[key]) / 10
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        kernels[key[:-3]] = {"ms": ms, "bound_ms": bound_ms, "bytes": nbytes}
+        log(f"[aug] {key[:-3]}: {ms!r} ms a call (profiler), bound {bound_ms!r} ms "
+            f"({nbytes} B)")
+    bound_ms = (3 * px + 4 * px) / HBM_BYTES_PER_S * 1e3   # u8 in, bf16 out; bf16 in and out
+    log(f"[aug] bf16 {TRAIN_N} x {CANVAS}: strong_augment {strong_ms!r} ms (plain "
+        f"{plain_strong_ms!r}), scale_jitter {jitter_ms!r} ms (plain {plain_jitter_ms!r}); "
+        f"bound of both {bound_ms!r} ms")
+    return {"name": "device_aug", "route": "cuda",
+            "source": "probabilisticteacher_torch/csrc/device_aug.cu",
+            "replaces": None, "max_abs_err": err["bfloat16"], "max_abs_err_f32": err["float32"],
+            "ms": strong_ms + jitter_ms, "plain_ms": plain_strong_ms + plain_jitter_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "shape": f"{TRAIN_N} uint8 images {CANVAS} -> bf16, strong_augment + scale_jitter "
+                     "(ms, plain_ms, bound_ms)",
+            "cases": {"strong_augment": {"ms": strong_ms, "plain_ms": plain_strong_ms},
+                      "scale_jitter": {"ms": jitter_ms, "plain_ms": plain_jitter_ms},
+                      **kernels}, "gates_open": gates}
 
 
 # --------------------------------------------------------------------- phase 6
@@ -1864,6 +1975,7 @@ def main() -> int:
     k_roi = timed("roi_align", phase_roi_align)
     k_bwd = timed("roi_align_bwd", phase_roi_align_bwd)
     k_nms = timed("nms", phase_nms)
+    k_aug = timed("aug", phase_aug)
     sl = timed("slice", phase_slice)
     timed("reference", phase_reference)
     tr = timed("train", phase_train)
@@ -1888,17 +2000,20 @@ def main() -> int:
         entry["cases"].update(px["cases"][entry["name"]])
         entry["cases"].update(bn["cases"][entry["name"]])
         entry["cases"].update(dg["cases"][entry["name"]])
+    k_aug["launches_by_path"] = {path: {k.symbol: c[k.symbol] for k in device_aug_cuda.KERNELS}
+                                 for path, c in launches.items()}
+    k_aug["launches"] = sum(sum(c.values()) for c in k_aug["launches_by_path"].values())
     log(json.dumps({"slice": {k: v for k, v in sl.items() if k not in ("launches", "calls")},
                     "train": tr["out"], "cli": cli["out"], "dp_cli": dp_cli["out"],
                     "dp": dp["out"], "levers": lv["out"], "proxy": px["out"], "bench": bn["out"],
                     "diagnostics": dg["out"],
                     "build_s": build_s, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t0}))
-    log("[kernels] library_ms is null for all three: core PyTorch has no ROIAlign, ROIAlign "
-        "backward or NMS call (torchvision is not installed), so no single library call "
-        "computes any of them")
+    log("[kernels] library_ms is null for all four: core PyTorch has no ROIAlign, ROIAlign "
+        "backward, NMS or strong-augmentation call (torchvision is not installed), so no "
+        "single library call computes any of them")
     log(f"[card] {card_line()}")
-    log(json.dumps({"kernels": [k_roi, k_bwd, k_nms]}))
+    log(json.dumps({"kernels": [k_roi, k_bwd, k_nms, k_aug]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -2,9 +2,13 @@
 
 The strong photometric stack (ColorJitter(.4, .4, .4, .1) with p .8, grayscale
 p .2, Gaussian blur sigma U[0.1, 2] p .5, solarize(128) p .2) and the random
-scale jitter run on the card, vectorized over the batch: each image's gate and
-parameters are tensors, and an op that is gated off for an image is computed and
-then dropped by ``torch.where``, so nothing waits on the host.
+scale jitter, vectorized over the batch: each image's gate and parameters are
+tensors, so nothing waits on the host. :func:`strong_augment` and
+:func:`scale_jitter` run a CPU tensor through the plain PyTorch version
+(:func:`strong_augment_plain`, :func:`scale_jitter_plain`), where an op that is
+gated off for an image is computed and then dropped by ``torch.where``, and any
+other through the CUDA kernels of ``ops/device_aug_cuda.py``, which compute only
+the ops each image's gates open and match the plain version op for op.
 
 Every random number is an argument (:class:`AugDraws` and the jitter ratios):
 tests pass the numbers JAX drew, a caller with none draws them with
@@ -20,8 +24,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops import device_aug_cuda
 
 _LUMA = (0.299, 0.587, 0.114)
 JITTER = (0.4, 0.4, 0.4, 0.1)        # brightness, contrast, saturation, hue
@@ -45,10 +52,13 @@ def draw_aug(n: int, generator: Optional[torch.Generator], device) -> AugDraws:
         return torch.rand(shape, generator=generator, device=device)
 
     b, c, s, h = JITTER
-    lo = torch.tensor([1 - b, 1 - c, 1 - s, -h], device=device)
-    hi = torch.tensor([1 + b, 1 + c, 1 + s, h], device=device)
+    # lo + (hi - lo) * u in f32, a column at a time with the bounds as scalars: a
+    # tensor of bounds would be a copy from the host, which waits on the card
+    lo = np.float32([1 - b, 1 - c, 1 - s, -h])
+    span = np.float32([1 + b, 1 + c, 1 + s, h]) - lo
     gates = u(n, 4)
-    factors = lo + (hi - lo) * u(n, 4)
+    raw = u(n, 4)
+    factors = torch.stack([raw[:, j] * float(span[j]) + float(lo[j]) for j in range(4)], dim=-1)
     order = torch.argsort(u(n, 4), dim=-1)
     sigma = BLUR_SIGMA[0] + (BLUR_SIGMA[1] - BLUR_SIGMA[0]) * u(n)
     return AugDraws(gates, factors, order, sigma)
@@ -166,7 +176,16 @@ def solarize(img: torch.Tensor, threshold: float = 128.0) -> torch.Tensor:
 
 def strong_augment(images: torch.Tensor, draws: AugDraws,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The strong stack on a batch (N, H, W, 3) in 0..255, computed in ``dtype``."""
+    """The strong stack on a batch (N, H, W, 3) in 0..255, computed in ``dtype``: the
+    plain version on the CPU, the CUDA kernels elsewhere."""
+    if images.device.type == "cpu":
+        return strong_augment_plain(images, draws, dtype)
+    return device_aug_cuda.strong_augment(images, draws, dtype, GATES, _LUMA)
+
+
+def strong_augment_plain(images: torch.Tensor, draws: AugDraws,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`strong_augment` in plain PyTorch, on any device."""
     img = images.to(dtype)
     g = draws.gates
     img = torch.where(_per_image(g[:, 0] < GATES[0]),
@@ -182,19 +201,43 @@ def scale_jitter(images: torch.Tensor, image_hw: torch.Tensor, boxes: torch.Tens
                  dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shrink each image by its ``ratio`` (N,) into the center of its valid (h, w),
     bilinear with half-pixel centers, and fill the rest with ``pixel_mean``; move
-    ``boxes`` (N, ..., 4) the same way (``box * ratio + (x1, y1, x1, y1)``).
-
-    The sampling coordinates stay f32; the blend weights are in ``dtype``.
+    ``boxes`` (N, ..., 4) the same way (``box * ratio + (x1, y1, x1, y1)``). The
+    plain version on the CPU; elsewhere the CUDA kernel, the boxes as here.
     """
+    if images.device.type == "cpu":
+        return scale_jitter_plain(images, image_hw, boxes, pixel_mean, ratio, dtype)
+    out = device_aug_cuda.scale_jitter(images, image_hw, ratio, pixel_mean, dtype)
+    _, _, y1, x1 = _jitter_frame(image_hw.float(), ratio.float())
+    return out, _move_boxes(boxes, ratio.float(), x1, y1)
+
+
+def _jitter_frame(hw: torch.Tensor, ratio: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each image's shrunk size (d_h, d_w) and top-left corner (y1, x1), f32 (N,)."""
+    d_h = torch.floor(hw[:, 0] * ratio)
+    d_w = torch.floor(hw[:, 1] * ratio)
+    y1 = torch.floor((hw[:, 0] - d_h) / 2.0)
+    x1 = torch.floor((hw[:, 1] - d_w) / 2.0)
+    return d_h, d_w, y1, x1
+
+
+def _move_boxes(boxes: torch.Tensor, ratio: torch.Tensor, x1: torch.Tensor,
+                y1: torch.Tensor) -> torch.Tensor:
+    shape = (boxes.shape[0],) + (1,) * (boxes.dim() - 2)
+    offs = torch.stack([x1, y1, x1, y1], dim=-1).reshape(shape + (4,))
+    return boxes * ratio.reshape(shape + (1,)) + offs
+
+
+def scale_jitter_plain(images: torch.Tensor, image_hw: torch.Tensor, boxes: torch.Tensor,
+                       pixel_mean: Sequence[float], ratio: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scale_jitter` in plain PyTorch, on any device. The sampling coordinates
+    stay f32; the blend weights are in ``dtype``."""
     img = images.to(dtype)
     n, h, w, _ = img.shape
     dev = img.device
     hw = image_hw.float()
     ratio = ratio.float()
-    d_h = torch.floor(hw[:, 0] * ratio)
-    d_w = torch.floor(hw[:, 1] * ratio)
-    y1 = torch.floor((hw[:, 0] - d_h) / 2.0)
-    x1 = torch.floor((hw[:, 1] - d_w) / 2.0)
+    d_h, d_w, y1, x1 = _jitter_frame(hw, ratio)
     ar_h = torch.arange(h, dtype=torch.float32, device=dev)[None]
     ar_w = torch.arange(w, dtype=torch.float32, device=dev)[None]
     one = torch.ones((), device=dev)
@@ -220,6 +263,4 @@ def scale_jitter(images: torch.Tensor, image_hw: torch.Tensor, boxes: torch.Tens
     inside = in_y[:, :, None, None] & in_x[:, None, :, None]
     mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev).to(dtype)
     out = torch.where(inside, out, mean)
-    shape = (n,) + (1,) * (boxes.dim() - 2)
-    offs = torch.stack([x1, y1, x1, y1], dim=-1).reshape(shape + (4,))
-    return out, boxes * ratio.reshape(shape + (1,)) + offs
+    return out, _move_boxes(boxes, ratio, x1, y1)

@@ -54,7 +54,7 @@ from ..evaluation import evaluate_detections
 from ..events import ConsoleWriter, EventStorage, JSONWriter, TensorboardWriter
 from ..modeling.detector import PTDetector
 from ..ops import nms as nms_ops
-from ..ops import nms_cuda, roi_align_cuda
+from ..ops import device_aug_cuda, nms_cuda, roi_align_cuda
 from ..parallel.mesh import Mesh, all_reduce_sum, make_mesh, replicate
 from ..parallel.prefetch import DevicePrefetcher, host_to_device
 from ..solver import auto_scale_config, build_optimizer
@@ -65,8 +65,8 @@ from .steps import create_train_state, make_train_steps
 logger = logging.getLogger("probabilisticteacher_torch")
 
 # the CUDA kernels whose launches a traced step counts, by counter prefix
-TRACED_KERNELS = (("k1", roi_align_cuda.KERNEL), ("k2", roi_align_cuda.BWD_KERNEL),
-                  ("k3", nms_cuda.KERNEL))
+TRACED_KERNELS = (("k1", (roi_align_cuda.KERNEL,)), ("k2", (roi_align_cuda.BWD_KERNEL,)),
+                  ("k3", (nms_cuda.KERNEL,)), ("aug", device_aug_cuda.KERNELS))
 
 
 def trainer_device(name: str) -> torch.device:
@@ -321,13 +321,13 @@ class PTrainer:
         if tracer is None:
             self._run_step(batch_iter, None)
             return
-        launches = [k.launches for _, k in TRACED_KERNELS]
+        launches = [sum(k.launches for k in ks) for _, ks in TRACED_KERNELS]
         scans = [] if tracer.steps == 0 else None
         with tracer.step(self.iter), (contextlib.nullcontext() if scans is None
                                       else nms_ops.recording_scans(scans)):
             self._run_step(batch_iter, tracer)
-        for (name, k), before in zip(TRACED_KERNELS, launches):
-            tracer.count(f"{name}.launches", k.launches - before)
+        for (name, ks), before in zip(TRACED_KERNELS, launches):
+            tracer.count(f"{name}.launches", sum(k.launches for k in ks) - before)
         if scans is not None:
             tracer.count("k3.ious", functools.partial(nms_cuda.count_ious, scans))
 

@@ -21,8 +21,9 @@ one JSON line per path:
   each kernel's device time over the whole call (:func:`kernel_ms`):
   ``roi_align_fwd_ms`` (K1: the teacher's and the student's ROIAlign in a
   mutual step; the ROI heads' in ``detect``/``pseudo_labels``), and for the
-  train steps ``roi_align_bwd_ms`` (K2, in the backward) and ``nms_keep_ms``
-  (K3: student RPN, teacher RPN, teacher class-aware NMS).
+  train steps ``roi_align_bwd_ms`` (K2, in the backward), ``nms_keep_ms``
+  (K3: student RPN, teacher RPN, teacher class-aware NMS) and the augmentation's
+  ``aug_gray_sums_ms``, ``aug_color_ms`` and ``aug_scale_jitter_ms``.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -98,10 +99,13 @@ def profile_call(fn):
             "ops": [[k, t] for k, t in op_rows[:12]]}, kernel_rows
 
 
-# the CUDA kernels' names in the profiler's rows: K1, K2, K3
+# the CUDA kernels' names in the profiler's rows: K1, K2, K3, the augmentation's three
 KERNEL_ROWS = {"roi_align_fwd_ms": "roi_align_fwd_kernel",
                "roi_align_bwd_ms": "roi_align_bwd_kernel",
-               "nms_keep_ms": "nms_keep_kernel"}
+               "nms_keep_ms": "nms_keep_kernel",
+               "aug_gray_sums_ms": "aug_gray_sums_kernel",
+               "aug_color_ms": "aug_color_kernel",
+               "aug_scale_jitter_ms": "aug_scale_jitter_kernel"}
 
 
 def kernel_ms(kernel_rows, name: str) -> float:

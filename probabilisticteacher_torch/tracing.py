@@ -17,8 +17,9 @@ A :class:`Tracer` records, in memory, what the host threads of a training run do
 
 Counters, each with the iteration it belongs to: ``prefetch.depth``, the batches
 ready when the step asked for one (0: the step waited); at the end of each step
-(``engine/trainer.py``), ``k1.launches``, ``k2.launches`` and ``k3.launches`` (the
-step's launches of the CUDA kernels), and at the end of the tracer's first step
+(``engine/trainer.py``), ``k1.launches``, ``k2.launches``, ``k3.launches`` and
+``aug.launches`` (the step's launches of the CUDA kernels, the augmentation's three
+together), and at the end of the tracer's first step
 ``k3.ious``, the IoUs its greedy NMS scans needed (``ops/nms.py``). A counter's
 value may be a function, work put off until :meth:`drain` calls it: the IoUs are
 counted by a slower instantiation of the kernel, after the work being timed.

@@ -109,3 +109,31 @@ def test_color_jitter_follows_each_images_order():
         for o in order:
             x = ops[o](x, jnp.float32(factors[i, o]))
         np.testing.assert_allclose(got[i].numpy(), np.asarray(x), rtol=0, atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 5])
+def test_draw_aug_factors_equal_tensor_bounds(seed):
+    """``draw_aug`` builds the factors from scalar bounds a column at a time (a tensor
+    of bounds on the card would be a copy from the host, which waits); the numbers are
+    those of ``lo + (hi - lo) * u`` with the bounds as f32 tensors, bit for bit."""
+    d = ta.draw_aug(4096, torch.Generator().manual_seed(seed), "cpu")
+    g = torch.Generator().manual_seed(seed)
+    gates, u = torch.rand((4096, 4), generator=g), torch.rand((4096, 4), generator=g)
+    b, c, s, h = ta.JITTER
+    lo = torch.tensor([1 - b, 1 - c, 1 - s, -h])
+    hi = torch.tensor([1 + b, 1 + c, 1 + s, h])
+    assert torch.equal(d.gates, gates)
+    assert d.factors.dtype == torch.float32 and torch.equal(d.factors, lo + (hi - lo) * u)
+
+
+def test_tensors_off_the_cpu_take_the_kernels():
+    """Only a CPU tensor takes the plain version: any other goes to the CUDA wrappers,
+    which refuse a device that is not the card (no fallback)."""
+    img = torch.empty(2, 8, 8, 3, dtype=torch.uint8, device="meta")
+    draws = ta.draw_aug(2, None, "meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        ta.strong_augment(img, draws, torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        ta.scale_jitter(img.float(), torch.empty(2, 2, device="meta"),
+                        torch.empty(2, 3, 4, device="meta"), MEAN,
+                        torch.empty(2, device="meta"), torch.bfloat16)

@@ -25,10 +25,24 @@ ROWS = [
      "const*, unsigned char*, int, int, float)", 1.0),
     ("void (anonymous namespace)::nms_keep_kernel(float const*, float const*, unsigned char "
      "const*, unsigned char*, int, int, float)", 2.0),
+    ("void (anonymous namespace)::aug_gray_sums_kernel<unsigned char, __nv_bfloat16>("
+     "unsigned char const*, float*, int, float const*, float const*, long long const*, "
+     "(anonymous namespace)::Luma, float)", 0.125),
+    ("void (anonymous namespace)::aug_color_kernel<unsigned char, __nv_bfloat16>(unsigned "
+     "char const*, __nv_bfloat16*, int, int, float const*, float const*, long long const*, "
+     "float const*, float const*, int, float, (anonymous namespace)::Luma, "
+     "(anonymous namespace)::Gates)", 0.75),
+    ("void (anonymous namespace)::aug_color_kernel<float, float>(float const*, float*, int, "
+     "int, float const*, float const*, long long const*, float const*, float const*, int, "
+     "float, (anonymous namespace)::Luma, (anonymous namespace)::Gates)", 0.25),
+    ("void (anonymous namespace)::aug_scale_jitter_kernel<__nv_bfloat16>(__nv_bfloat16 "
+     "const*, __nv_bfloat16*, int, int, float const*, float const*, float, float, float)",
+     0.5),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1", 9.0),
     ("void at::native::elementwise_kernel<128, 2>(int, at::native::gpu_kernel_impl)", 4.0),
 ]
-WANT = {"roi_align_fwd_ms": 1.75, "roi_align_bwd_ms": 2.5, "nms_keep_ms": 3.0}
+WANT = {"roi_align_fwd_ms": 1.75, "roi_align_bwd_ms": 2.5, "nms_keep_ms": 3.0,
+        "aug_gray_sums_ms": 0.125, "aug_color_ms": 1.0, "aug_scale_jitter_ms": 0.5}
 
 
 @pytest.mark.parametrize("key", list(KERNEL_ROWS))

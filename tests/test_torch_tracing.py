@@ -118,9 +118,10 @@ def test_run_step_spans_nest_in_stage_order(tmp_path, names, phase):
     counters = {}
     for c in trace.counters:
         counters.setdefault(c.name, []).append(c)
-    for name in ("k1.launches", "k2.launches", "k3.launches"):
+    for name in ("k1.launches", "k2.launches", "k3.launches", "aug.launches"):
         assert [c.iteration for c in counters[name]] == [s.iteration for s in steps]
-    assert all(c.value == 0 for k in ("k1", "k2", "k3") for c in counters[f"{k}.launches"])
+    assert all(c.value == 0 for k in ("k1", "k2", "k3", "aug")
+               for c in counters[f"{k}.launches"])
     # the first step's NMS scans (the RPN's, on the CPU), counted by drain
     assert [c.iteration for c in counters["k3.ious"]] == [steps[0].iteration]
     assert counters["k3.ious"][0].value > 0
