@@ -4,7 +4,13 @@
 of its own, found by that name:
 
 - ``benchmark/configs/<config>.json``: the recipe, its overrides, the model's sizes
-  as the reference reads them, the datasets' image sizes and box statistics;
+  as the reference reads them, the datasets' image sizes and box statistics; and,
+  for an architecture other than the VGG16 detector, ``"reference"``, the name of a
+  module under ``benchmark/reference/`` that gives the reference's detector and
+  steps (``runner.REFERENCE_NAMES``), and ``"counts"``, the name of a module under
+  ``benchmark/harness/`` that gives ``iteration_flops`` and ``kernel_launches`` as
+  ``harness/counts.py`` does. Without them the configuration runs the VGG16
+  reference of ``reference/vgg16.py`` and the counts of ``harness/counts.py``;
 - ``benchmark/traffic/<traffic>.json``: the phase, the stored scale and format of
   the images, the tree's seed and size;
 - ``benchmark/limits/<workload>.json``: the limit of each number compared;
@@ -18,9 +24,12 @@ that is there changes.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
+import sys
+import types
 from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,3 +87,17 @@ def metric_reader(bench_dir: str, name: str) -> Callable[[Dict], Optional[float]
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def bench_module(bench_dir: str, package: str, name: str):
+    """The module ``<bench_dir>/<package>/<name>.py``, imported as a member of a
+    package whose path is that directory and whose name is its own for each
+    directory, so that the module and its relative imports come from ``bench_dir``
+    whatever copy of ``package`` was imported first."""
+    root = os.path.join(os.path.abspath(bench_dir), package)
+    pkg = f"_bench_{package}_{hashlib.sha1(root.encode()).hexdigest()[:12]}"
+    if pkg not in sys.modules:
+        mod = types.ModuleType(pkg)
+        mod.__path__ = [root]
+        sys.modules[pkg] = mod
+    return importlib.import_module(f"{pkg}.{name}")

@@ -24,7 +24,8 @@ just those (PERF.md gives the readings each limit was set from):
   reference's, blind to the clip's common scale;
 - ``rpn_first``: the first step's supervised RPN losses, the larger relative gap;
 - ``rpn_out_first``: the student's RPN head outputs (objectness and anchor deltas of
-  every image) in the first step, the larger of the two relative L2 gaps. The first
+  every image, on each feature level) in the first step, the largest of the
+  relative L2 gaps by output and level. The first
   step starts both sides from the same weights on the same images, and no discrete
   choice lies upstream of the head, so only the arithmetic's precision moves it;
 - ``pseudo_miss`` (mutual): the share of the reference teacher's detections (class,
@@ -50,23 +51,31 @@ PSEUDO_IOU = 0.5
 class Capture:
     """The first three iterations of one side: batches (host numpy), metrics, the
     teacher's detections (mutual), the student's RPN head outputs in the first
-    step, the first gradient, and the student's and teacher's change after three
-    steps, per leaf (host f32)."""
+    step (per call, each output as a list of its feature levels), the first
+    gradient, and the student's and teacher's change after three steps, per leaf
+    (host f32)."""
 
     def __init__(self):
         self.batches: List[Dict[str, np.ndarray]] = []
         self.metrics: List[Dict[str, float]] = []
         self.dets: List[Dict[str, np.ndarray]] = []
-        self.rpn1: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.rpn1: List[Tuple[List[torch.Tensor], ...]] = []
         self.grad1: Dict[str, torch.Tensor] = {}
         self.delta3: Dict[str, torch.Tensor] = {}
         self.teacher3: Dict[str, torch.Tensor] = {}
 
 
 def record_rpn(cap: Capture):
-    """A forward hook for an RPN head that keeps its (objectness, deltas) in ``cap``."""
+    """A forward hook for an RPN head that keeps its outputs (objectness, deltas) in
+    ``cap``, each as the list of its feature levels: a head that returns one tensor
+    per output has one level, one that returns a list per output (a feature
+    pyramid) has one per map."""
+    def levels(x) -> List[torch.Tensor]:
+        x = [x] if isinstance(x, torch.Tensor) else list(x)
+        return [t.detach().float().cpu() for t in x]
+
     def hook(module, inputs, out):
-        cap.rpn1.append(tuple(t.detach().float().cpu() for t in out))
+        cap.rpn1.append(tuple(levels(x) for x in out))
     return hook
 
 
@@ -189,16 +198,22 @@ def rpn_first_gap(prog: Capture, ref: Capture) -> float:
 
 def rpn_out_gap(prog: Capture, ref: Capture) -> float:
     """The student's RPN head outputs in the first step, each of objectness and
-    anchor deltas over all its calls and images: the larger ||prog - ref|| / ||ref||."""
+    anchor deltas on each feature level over all its calls and images: the largest
+    ||prog - ref|| / ||ref||. Outputs or levels that differ in number or shape read
+    inf."""
     if len(prog.rpn1) != len(ref.rpn1) or not ref.rpn1:
         return math.inf
+    shape = [len(x) for x in ref.rpn1[0]]
+    if any([len(x) for x in c] != shape for c in prog.rpn1 + ref.rpn1):
+        return math.inf
     worst = 0.0
-    for i in range(2):
-        p = torch.cat([c[i].flatten() for c in prog.rpn1]).double()
-        r = torch.cat([c[i].flatten() for c in ref.rpn1]).double()
-        if p.shape != r.shape or not bool(torch.isfinite(p).all()):
-            return math.inf
-        worst = max(worst, float((p - r).norm() / r.norm().clamp(min=1e-300)))
+    for i, n_levels in enumerate(shape):
+        for lv in range(n_levels):
+            p = torch.cat([c[i][lv].flatten() for c in prog.rpn1]).double()
+            r = torch.cat([c[i][lv].flatten() for c in ref.rpn1]).double()
+            if p.shape != r.shape or not bool(torch.isfinite(p).all()):
+                return math.inf
+            worst = max(worst, float((p - r).norm() / r.norm().clamp(min=1e-300)))
     return worst
 
 

@@ -15,6 +15,12 @@ the same trainer and feed go on into the window. After the window, with the peak
 memory read and the program's state freed, the reference repeats those three
 iterations from the files, the weights and the draws, and ``check.compare`` decides
 ``correct``.
+
+A traced run also gives the trainer a tracer (``probabilisticteacher_torch/tracing.py``)
+for the window alone: its spans and counters are joined to the profiler's trace
+(``harness/stages.py``) for the per-layer readers, and name the device's idle gaps.
+An untraced run makes no tracer. The reference and the work counts are the ones the
+configuration names (``reference_of``, ``counts_of``).
 """
 
 from __future__ import annotations
@@ -26,19 +32,26 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from . import check, counts, trace as trace_mod, tree as tree_mod
-from .cells import Cell, metric_reader
+from . import check, counts, stages, trace as trace_mod, tree as tree_mod
+from .cells import Cell, bench_module, metric_reader
 from .weights import make_weights
 
 BANNED_MODULES = ("jax", "jaxlib", "flax", "probabilisticteacher_tpu")
 COMPARED_STEPS = 3
 EXTRA_WARM_STEPS = 1
+# what a configuration's reference module gives ``run_reference``: the sizes
+# (``Arch.from_dict`` of the file's ``arch``), the detector ``Detector(arch, device,
+# prec)`` with its ``rpn_head``, the precisions ``exact`` and ``fp8_e4m3`` (the
+# control), the batch types, and the steps
+REFERENCE_NAMES = ("Arch", "Detector", "ImageBatch", "GroundTruth", "exact", "fp8_e4m3",
+                   "build_state", "burnin_step", "mutual_step")
 
 
 def process_start_ns() -> int:
@@ -76,6 +89,25 @@ def card_line() -> str:
 
 
 # --------------------------------------------------------------------------- the cell
+def reference_of(cell: Cell):
+    """The configuration's reference: the module its file names under ``"reference"``
+    (``benchmark/reference/<name>.py``), by default ``reference/vgg16.py``; it has to
+    give ``REFERENCE_NAMES``."""
+    name = cell.config.get("reference", "vgg16")
+    mod = bench_module(cell.bench_dir, "reference", name)
+    missing = [n for n in REFERENCE_NAMES if not hasattr(mod, n)]
+    if missing:
+        raise AttributeError(f"reference module {name!r} lacks {missing}")
+    return mod
+
+
+def counts_of(cell: Cell):
+    """The configuration's work counts: the module its file names under ``"counts"``
+    (``benchmark/harness/<name>.py``), or ``harness/counts.py``'s VGG16 counts; each
+    gives ``iteration_flops`` and ``kernel_launches``."""
+    return bench_module(cell.bench_dir, "harness", cell.config.get("counts", "counts"))
+
+
 def start_iter(cell: Cell) -> int:
     s = cell.traffic["start_iter"]
     return int(cell.config["train"]["burn_up_step"]) if s == "burn_up" else int(s)
@@ -290,8 +322,11 @@ def run_program(cell: Cell, repo: str, seed: int, seconds: float, traced: bool, 
     setup_s = (time.time_ns() - t_start_ns) / 1e9
     n_img = int(c["train"]["img_per_batch_label"]) + int(c["train"]["img_per_batch_unlabel"])
 
-    prof = None
+    prof = tracer = None
     if traced:
+        # the program's spans and counters, over the window only
+        from probabilisticteacher_torch.tracing import Tracer
+        tracer = trainer.tracer = Tracer()
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
         prof = profile(activities=acts)
@@ -318,9 +353,11 @@ def run_program(cell: Cell, repo: str, seed: int, seconds: float, traced: bool, 
     _sync(dev)
     window_s = time.perf_counter() - t0
     t1_ns = time.time_ns()
+    if tracer is not None:
+        trainer.tracer = None
     # the window's last step, read after it
     failed += not math.isfinite(prev.values().get("total_loss", float("nan")))
-    summary = None
+    summary = stage_summary = None
     if prof is not None:
         prof.__exit__(None, None, None)
         path = os.path.join(out_dir, "trace.json")
@@ -328,8 +365,15 @@ def run_program(cell: Cell, repo: str, seed: int, seconds: float, traced: bool, 
         with open(path) as f:
             raw = json.load(f)
         os.remove(path)
+        main = threading.get_native_id()
+        program = tracer.drain()
+        # each idle gap is named by the innermost span open when it began: the
+        # program's stage where one was, else the benchmark's own
+        spans += [(s.name, s.start, s.end) for s in program.spans if s.thread == main]
         summary = trace_mod.summarize(trace_mod.device_events(raw), t0_ns, t1_ns, spans)
-        del raw
+        stage_summary = stages.summarize(raw, program.spans, program.counters, t0_ns, t1_ns,
+                                         main)
+        del raw, program
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     if phase == "burnin" and it > burn_up:
         raise ValueError(f"the burn-in window reached iteration {it}, past BURN_UP_STEP")
@@ -345,7 +389,7 @@ def run_program(cell: Cell, repo: str, seed: int, seconds: float, traced: bool, 
     return {"capture": cap, "p0": p0, "trees": tdirs, "setup_s": setup_s,
             "window_s": window_s, "iterations": iters, "images": n_img * iters,
             "data_wait_s": data_wait, "failed": failed, "peak_bytes": peak, "trace": summary,
-            "decoder": decoder, "start_iter": s0}
+            "stages": stage_summary, "decoder": decoder, "start_iter": s0}
 
 
 # ------------------------------------------------------------------- the reference
@@ -353,20 +397,18 @@ def run_reference(cell: Cell, p0: Dict[str, torch.Tensor], tdirs: Dict[str, str]
                   device: str, s0: int, control: bool = False) -> check.Capture:
     """The reference's first three iterations (f32, TF32 off; ``control``: its
     convolution and matmul operands rounded to fp8 e4m3)."""
-    sys.path.insert(0, cell.bench_dir)
-    from reference import data as rdata
-    from reference import model as rmodel
-    from reference import step as rstep
+    rdata = bench_module(cell.bench_dir, "reference", "data")
+    ref = reference_of(cell)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
     c = cell.config
-    arch = rmodel.Arch.from_dict(c["arch"])
-    prec = rmodel.fp8_e4m3 if control else rmodel._exact
-    model = rmodel.PTDetector(arch, dev, prec)
+    arch = ref.Arch.from_dict(c["arch"])
+    prec = ref.fp8_e4m3 if control else ref.exact
+    model = ref.Detector(arch, dev, prec)
     model.load_state_dict({k: v.to(dev) for k, v in p0.items()})
-    st = rstep.build_state(model, c["solver"], arch.freeze_at, s0)
+    st = ref.build_state(model, c["solver"], arch.freeze_at, s0)
     names = {id(p): n for n, p in model.named_parameters()}
     inp, tr = c["input"], c["train"]
     mapper = rdata.Mapper(inp["min_size_train"], inp["max_size_train"], inp["canvas_wide"],
@@ -385,19 +427,19 @@ def run_reference(cell: Cell, p0: Dict[str, torch.Tensor], tdirs: Dict[str, str]
         hb = next(feed)
         lb, ub = hb["label"], hb["unlabel"]
         t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-        limg = rmodel.ImageBatch(t(lb["image"]), t(lb["image_hw"]))
-        lgt = rmodel.GroundTruth(t(lb["gt_boxes"]), t(lb["gt_classes"].astype(np.int32)),
-                                 t(lb["gt_valid"]))
+        limg = ref.ImageBatch(t(lb["image"]), t(lb["image_hw"]))
+        lgt = ref.GroundTruth(t(lb["gt_boxes"]), t(lb["gt_classes"].astype(np.int32)),
+                              t(lb["gt_valid"]))
         g = gen.manual_seed(step_seed(seed, s0 + i))
         hook = model.rpn_head.register_forward_hook(check.record_rpn(cap)) if i == 0 else None
         if phase == "mutual":
-            uimg = rmodel.ImageBatch(t(ub["image"]), t(ub["image_hw"]))
+            uimg = ref.ImageBatch(t(ub["image"]), t(ub["image_hw"]))
             cap.batches.append(check.host_batch(limg, lgt, uimg))
-            m = rstep.mutual_step(st, s0 + i, burn_up, tr, limg, lgt, uimg, g,
-                                  arch.pixel_mean, lambda d: cap.dets.append(check.host_dets(d)))
+            m = ref.mutual_step(st, s0 + i, burn_up, tr, limg, lgt, uimg, g,
+                                arch.pixel_mean, lambda d: cap.dets.append(check.host_dets(d)))
         else:
             cap.batches.append(check.host_batch(limg, lgt))
-            m = rstep.burnin_step(st, limg, lgt, g, arch.pixel_mean)
+            m = ref.burnin_step(st, limg, lgt, g, arch.pixel_mean)
         if hook is not None:
             hook.remove()
         cap.metrics.append({k: float(v) for k, v in m.items()})
@@ -425,13 +467,14 @@ def per_layer(cell: Cell, res: Dict) -> Dict[str, Dict]:
     short, max_size = c["input"]["min_size_train"][0], c["input"]["max_size_train"]
     hw_l = tree_mod.stored_hw(c["datasets"]["label"]["hw"], "train", short, max_size)
     hw_u = tree_mod.stored_hw(c["datasets"]["unlabel"]["hw"], "train", short, max_size)
+    work = counts_of(cell)
     ctx = dict(res)
     ctx.update(phase=phase, config=c, traffic=cell.traffic,
-               flops_per_iter=counts.iteration_flops(c["arch"], phase, n_l, n_u, hw_l,
-                                                     hw_u)["total"],
+               flops_per_iter=work.iteration_flops(c["arch"], phase, n_l, n_u, hw_l,
+                                                   hw_u)["total"],
                peak_flops=counts.H100_BF16_FLOPS,
-               launches=counts.kernel_launches(c["arch"], phase, n_l, n_u,
-                                               c["input"]["canvas_wide"]))
+               launches=work.kernel_launches(c["arch"], phase, n_l, n_u,
+                                             c["input"]["canvas_wide"]))
     out = {}
     for m in cell.per_layer:
         v = metric_reader(cell.bench_dir, m["name"])(ctx)

@@ -1,7 +1,6 @@
 """k3_ms_per_iter: the exact greedy NMS kernel's (K3, ``ops/nms_cuda.py``,
 ``csrc/nms.cu``) device time per iteration of the traced window, in ms. Its roofline
-share waits for a count of the IoUs the data needs, which only the program can
-give."""
+share is ``k3_roofline``, from the program's count of the IoUs the data needs."""
 
 KERNEL = "nms_keep_kernel"
 

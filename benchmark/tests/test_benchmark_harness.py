@@ -115,3 +115,4 @@ def test_banned_modules_compares_whole_top_level_names(monkeypatch):
     assert runner.banned_modules() == sorted(BANNED & {m.split(".")[0] for m in sys.modules})
     monkeypatch.setitem(sys.modules, "jax.numpy", object())
     assert "jax" in runner.banned_modules()
+

@@ -105,3 +105,75 @@ def add_tiny_cell(dest: str, phase: str = "mutual", amp: bool = True,
     with open(path, "w") as f:
         json.dump(spec, f)
     return path, name
+
+
+# a second architecture, as the files a later configuration brings: a reference
+# module and a count module under new names that record their use
+MARKED_REFERENCE = '''"""The VGG16 reference under another name, standing in for a second architecture's
+reference in the harness's tests: it counts the detectors it builds."""
+from .vgg16 import (Arch, GroundTruth, ImageBatch, build_state, burnin_step, exact,
+                    fp8_e4m3, mutual_step)
+from .vgg16 import Detector as VGG16Detector
+
+BUILT = []
+
+
+class Detector(VGG16Detector):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        BUILT.append(type(self).__name__)
+'''
+
+MARKED_COUNTS = '''"""Work counts standing in for a second architecture's in the harness's tests: three
+times the VGG16 model FLOPs, and K1/K2 launches whose least times are twice the
+VGG16 ones."""
+from . import counts
+
+CALLS = []
+FLOPS_FACTOR = 3
+BOUND_FACTOR = 2
+
+
+def iteration_flops(arch, phase, n_l, n_u, hw_l, hw_u):
+    CALLS.append("iteration_flops")
+    return {k: FLOPS_FACTOR * v
+            for k, v in counts.iteration_flops(arch, phase, n_l, n_u, hw_l, hw_u).items()}
+
+
+def kernel_launches(arch, phase, n_l, n_u, canvas):
+    CALLS.append("kernel_launches")
+    return {k: [BOUND_FACTOR * t for t in v]
+            for k, v in counts.kernel_launches(arch, phase, n_l, n_u, canvas).items()}
+'''
+
+
+def add_tiny_architecture(dest: str, cell: str, name: str = "tiny_marked") -> str:
+    """Add to the copy at ``dest`` (made by :func:`add_tiny_cell`) a configuration that
+    names its own reference module (``reference/<name>.py``) and count module
+    (``harness/<name>_counts.py``), with a limits file and a workload entry, by new
+    files and new entries alone. The configuration is the tiny cell ``cell``'s.
+    Returns the new workload's name."""
+    bdir = os.path.join(dest, "benchmark")
+    path = os.path.join(dest, "BENCHMARK.json")
+    with open(path) as f:
+        spec = json.load(f)
+    w = next(w for w in spec["workloads"] if w["name"] == cell)
+    with open(os.path.join(bdir, "configs", w["config"] + ".json")) as f:
+        cfg = json.load(f)
+    cfg.update(name=name, reference=name, counts=name + "_counts")
+    files = {os.path.join("reference", name + ".py"): MARKED_REFERENCE,
+             os.path.join("harness", name + "_counts.py"): MARKED_COUNTS,
+             os.path.join("configs", name + ".json"): json.dumps(cfg)}
+    with open(os.path.join(bdir, "limits", cell + ".json")) as f:
+        files[os.path.join("limits", name + "_cell.json")] = f.read()
+    for rel, text in files.items():
+        assert not os.path.exists(os.path.join(bdir, rel)), rel
+        with open(os.path.join(bdir, rel), "w") as f:
+            f.write(text)
+    spec["configs"].append({"name": name, "source": cfg["source"],
+                            "file": f"benchmark/configs/{name}.json", "reduced": [],
+                            "why": "a second architecture's files"})
+    spec["workloads"].append(dict(w, name=name + "_cell", config=name))
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return name + "_cell"
